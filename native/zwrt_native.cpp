@@ -1,6 +1,6 @@
 // Native runtime pieces for zig_weekend_raytracer_tpu.
 //
-// TPU-native equivalents of the reference's native components:
+// Equivalents of the reference's native components:
 //  * zwrt_write_ppm: parallel mmap'd PPM (P3) text writer — the analog of
 //    the reference's WriterPPM (src/writer/writer.zig:16-51): the output
 //    file is created at its exact final size, mmap'd shared, and pixel

@@ -6,8 +6,6 @@ measured noise.  Tests pin the plan algebra (exact budget conservation,
 range partitioning), the estimator (unbiased mean, equal-budget MSE win
 on cornell), and the guard rails (stratified rejection, image scenes)."""
 
-import os
-
 import numpy as np
 import pytest
 
@@ -86,7 +84,7 @@ def test_pick_pilot():
     assert 2 <= pick_pilot(5) <= 2
 
 
-def test_adaptive_budget_and_mean(pallas_interpret):
+def test_adaptive_budget_and_mean():
     scene = zwrt.models.load_scene("cornell_box")
     r = Renderer(samples_per_pixel=32, max_ray_bounce_depth=5, seed=0)
     fb, stats = r.render_adaptive(scene, 16, 16, return_stats=True)
@@ -99,7 +97,7 @@ def test_adaptive_budget_and_mean(pallas_interpret):
     assert abs(fb.mean() - fu.mean()) < 0.15 * fu.mean()
 
 
-def test_adaptive_equal_budget_mse(pallas_interpret):
+def test_adaptive_equal_budget_mse():
     """The headline claim: at the SAME total budget, adaptive allocation
     beats uniform against a high-spp reference (pooled over two seeds;
     measured pooled ratio 0.67 on this config — reserve=0.5 bounds the
@@ -130,10 +128,10 @@ def test_adaptive_stratified_raises():
         r.render_adaptive(scene, 8, 8)
 
 
-def test_adaptive_image_scene(pallas_interpret):
-    """Image-texture scenes ride the same balanced megakernel path (the
-    per-bounce kernel + atlas chain): budget conserved, image finite and
-    consistent with the uniform render's mean."""
+def test_adaptive_image_scene():
+    """Image-texture scenes ride the same balanced regenerating path:
+    budget conserved, image finite and consistent with the uniform
+    render's mean."""
     scene = zwrt.models.load_scene("shrek_quads")
     r = Renderer(samples_per_pixel=16, max_ray_bounce_depth=4, seed=0)
     fb, stats = r.render_adaptive(scene, 12, 12, return_stats=True)
@@ -145,30 +143,22 @@ def test_adaptive_image_scene(pallas_interpret):
 
 
 def test_adaptive_xla_fallback_renders_uniform():
-    """Without the Pallas backend the adaptive entry point degrades to the
-    uniform render instead of failing."""
-    os.environ["ZWRT_NO_PALLAS"] = "1"
-    from zig_weekend_raytracer_tpu.ops.trace import _use_pallas_backend
-
-    _use_pallas_backend.cache_clear()
-    try:
-        scene = zwrt.models.load_scene("cornell_box")
-        r = Renderer(samples_per_pixel=4, max_ray_bounce_depth=3, seed=0)
-        fb, stats = r.render_adaptive(scene, 8, 8, return_stats=True)
-        np.testing.assert_array_equal(
-            np.asarray(fb), np.asarray(r.render(scene, 8, 8))
-        )
-        assert (stats["n_samples"] == 4).all()
-    finally:
-        del os.environ["ZWRT_NO_PALLAS"]
-        _use_pallas_backend.cache_clear()
+    """When the pilot would take the whole budget the adaptive entry point
+    renders uniformly: the same image as ``render``, every pixel at spp."""
+    scene = zwrt.models.load_scene("cornell_box")
+    r = Renderer(samples_per_pixel=4, max_ray_bounce_depth=3, seed=0)
+    fb, stats = r.render_adaptive(scene, 8, 8, pilot_spp=4,
+                                  return_stats=True)
+    np.testing.assert_array_equal(
+        np.asarray(fb), np.asarray(r.render(scene, 8, 8))
+    )
+    assert (stats["n_samples"] == 4).all()
 
 
 def test_cli_adaptive_with_shard(tmp_path):
-    """Round 5: --adaptive combines with --shard through the CLI
-    (parallel/render.py:render_adaptive_sharded; on the plain CPU test
-    backend it falls back to the uniform sharded render with a warning —
-    the kernel-path semantics are pinned in test_adaptive_sharded.py)."""
+    """--adaptive combines with --shard through the CLI
+    (parallel/render.py:render_adaptive_sharded; its semantics are pinned
+    in test_adaptive_sharded.py)."""
     from zig_weekend_raytracer_tpu.cli import main
 
     out = tmp_path / "adaptive_shard.ppm"
@@ -181,7 +171,7 @@ def test_cli_adaptive_with_shard(tmp_path):
     assert out.read_bytes().startswith(b"P3")
 
 
-def test_adaptive_composes_with_russian_roulette(pallas_interpret):
+def test_adaptive_composes_with_russian_roulette():
     """Adaptive allocation + RR: budget conserved, image finite, mean in
     family with the plain render (both features are estimator-preserving)."""
     scene = zwrt.models.load_scene("cornell_box")
@@ -200,7 +190,7 @@ def test_adaptive_composes_with_russian_roulette(pallas_interpret):
     assert abs(fb.mean() - base.mean()) < 0.15 * base.mean()
 
 
-def test_adaptive_multiband(pallas_interpret):
+def test_adaptive_multiband():
     """A small max_rays_per_chunk forces multiple row bands through the
     adaptive driver (per-band pilot + allocation + pad-row handling):
     budget stays exactly conserved per band and the image stays finite."""

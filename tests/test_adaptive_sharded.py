@@ -1,6 +1,5 @@
 """Sharded adaptive sampling (parallel/render.py:render_adaptive_sharded)
-on the virtual 8-device CPU mesh — the round-5 lift of the round-4
-``--adaptive``/``--shard`` incompatibility.
+on the virtual 8-device CPU mesh.
 
 shard='samples' psums the pilot noise map, so every device computes the
 SAME allocation as the single-device path: the per-pixel sample map must
@@ -40,7 +39,7 @@ def _single(scene, seed=0):
                              return_stats=True)
 
 
-def test_samples_mode_matches_single_device_plan(pallas_interpret, scene):
+def test_samples_mode_matches_single_device_plan(scene):
     """The psum'd noise map reproduces the single-device allocation: the
     per-pixel sample map is EQUAL at every device count, and the image
     agrees to f32-reassociation tolerance (bitwise at n_dev=1)."""
@@ -60,7 +59,7 @@ def test_samples_mode_matches_single_device_plan(pallas_interpret, scene):
             )
 
 
-def test_rows_mode_one_device_bitwise(pallas_interpret, scene):
+def test_rows_mode_one_device_bitwise(scene):
     fb1, st1 = _single(scene)
     fb, st = render_adaptive_sharded(
         scene, 16, 16, SPP, max_depth=DEPTH, mesh=make_mesh(1),
@@ -71,7 +70,7 @@ def test_rows_mode_one_device_bitwise(pallas_interpret, scene):
 
 
 @pytest.mark.parametrize("n_dev", [2, 4])
-def test_rows_mode_budget_and_mean(pallas_interpret, scene, n_dev):
+def test_rows_mode_budget_and_mean(scene, n_dev):
     fb, st = render_adaptive_sharded(
         scene, 16, 16, SPP, max_depth=DEPTH, mesh=make_mesh(n_dev),
         shard="rows", seed=0, pilot_spp=PILOT, return_stats=True,
@@ -96,7 +95,7 @@ def test_rows_mode_budget_and_mean(pallas_interpret, scene, n_dev):
     assert abs(fb.mean() - fu.mean()) < 0.15 * fu.mean()
 
 
-def test_rows_mode_non_dividing_height(pallas_interpret, scene):
+def test_rows_mode_non_dividing_height(scene):
     """height=13 over 8 devices: the last device's padded rows must get
     zero allocation and be sliced off."""
     fb, st = render_adaptive_sharded(
@@ -110,7 +109,7 @@ def test_rows_mode_non_dividing_height(pallas_interpret, scene):
     assert st["n_samples"].sum() == 13 * 16 * SPP
 
 
-def test_samples_mode_non_dividing_spp_slices(pallas_interpret, scene):
+def test_samples_mode_non_dividing_spp_slices(scene):
     """8 devices over a pilot half of 4: most devices render empty pilot
     slices; the psum'd map must still reproduce the single-device plan."""
     fb1, st1 = _single(scene)
@@ -133,13 +132,13 @@ def test_stratified_rejected(scene):
 
 
 def test_fallback_without_kernel_backend(scene):
-    """On the plain CPU path (no Pallas), sharded adaptive falls back to
-    the uniform sharded render, like the single-device path does."""
+    """When the pilot would take the whole budget, sharded adaptive falls
+    back to the uniform sharded render, like the single-device path."""
     from zig_weekend_raytracer_tpu.parallel import render_sharded
 
     fb, st = render_adaptive_sharded(
         scene, 8, 8, 8, max_depth=2, mesh=make_mesh(2), shard="samples",
-        seed=3, return_stats=True,
+        seed=3, pilot_spp=8, return_stats=True,
     )
     assert (st["n_samples"] == 8).all()
     fu = render_sharded(

@@ -86,38 +86,27 @@ def test_write_aovs_pngs(tmp_path):
         assert im.shape[:2] == (8, 8)
 
 
-def test_aovs_on_kernel_backend_match_xla(pallas_interpret):
-    """On TPU the AOV pass traces through the Pallas streaming kernel;
-    interpret mode pins it against the XLA tracer used on CPU.
+def test_aovs_on_kernel_backend_match_xla():
+    """The AOV pass through the BVH traversal agrees with the same scene
+    traced by the brute-force scan (the two closest-hit strategies of
+    ops/trace.py)."""
+    from zig_weekend_raytracer_tpu.scene import Camera, SceneBuilder
 
-    Unlike Renderer-level backend tests (where the driver picks a
-    DIFFERENT jitted function per backend), _aov_band bakes the backend
-    choice in at trace time — the jit cache must be cleared when the env
-    flips, or the 'reference' render replays the kernel executable and
-    the test compares the kernel against itself."""
-    import os
+    def build(bvh):
+        rng = np.random.default_rng(3)
+        b = SceneBuilder()
+        for _ in range(40):
+            m = b.lambertian(b.solid_color(tuple(rng.uniform(0.2, 0.9, 3))))
+            b.add(b.sphere(rng.uniform(-4, 4, 3), rng.uniform(0.3, 1.0), m))
+        b.use_bvh(bvh)
+        b.set_camera(Camera(look_from=(0, 0, 14), look_at=(0, 0, 0)))
+        b.set_background((0.5, 0.7, 1.0))
+        return b.compile()
 
-    import jax
-
-    scene = zwrt.models.load_scene("cornell_box")
-    jax.clear_caches()
-    a_kernel = render_aovs(scene, 12, 12, spp=2)
-
-    prior = os.environ.get("ZWRT_NO_PALLAS")
-    os.environ["ZWRT_NO_PALLAS"] = "1"
-    from zig_weekend_raytracer_tpu.ops.trace import _use_pallas_backend
-
-    _use_pallas_backend.cache_clear()
-    jax.clear_caches()
-    try:
-        a_ref = render_aovs(scene, 12, 12, spp=2)
-    finally:
-        if prior is None:
-            del os.environ["ZWRT_NO_PALLAS"]
-        else:
-            os.environ["ZWRT_NO_PALLAS"] = prior
-        _use_pallas_backend.cache_clear()
-        jax.clear_caches()
+    tree, flat = build(True), build(False)
+    assert tree.compiled.has_bvh and not flat.compiled.has_bvh
+    a_kernel = render_aovs(tree, 12, 12, spp=2)
+    a_ref = render_aovs(flat, 12, 12, spp=2)
 
     np.testing.assert_array_equal(a_kernel["coverage"], a_ref["coverage"])
     for key in ("albedo", "normal", "depth"):
@@ -129,7 +118,7 @@ def test_aovs_on_kernel_backend_match_xla(pallas_interpret):
 def test_cli_stats_counts_aov_pass(tmp_path, capsys):
     """--stats must account for the hidden AOV pass --denoise triggers:
     total paths include the aov spp and the breakdown names both passes
-    (VERDICT r3 weak #5 — honest same-budget accounting)."""
+    (honest same-budget accounting)."""
     from zig_weekend_raytracer_tpu.cli import main
 
     out_path = tmp_path / "s.ppm"

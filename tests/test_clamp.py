@@ -3,42 +3,31 @@
 Cycles-style: radiance contributions landed at bounce >= 1 are luminance-
 scaled to at most the clamp value; direct light (bounce 0) stays exact.
 Biased by construction, default off (reference semantics + goldens).  The
-kernel twin mirrors the XLA integrator contribution-for-contribution."""
-
-import os
+regenerating wavefront gates the clamp on each lane's own bounce index, so
+it matches the per-bounce reference contribution-for-contribution."""
 
 import numpy as np
+import pytest
 
 import zig_weekend_raytracer_tpu as zwrt
 from zig_weekend_raytracer_tpu.render import Renderer
 from zig_weekend_raytracer_tpu.scene import Camera, SceneBuilder
 
 
-def _xla_only(fn):
-    os.environ["ZWRT_NO_PALLAS"] = "1"
-    from zig_weekend_raytracer_tpu.ops.trace import _use_pallas_backend
-
-    _use_pallas_backend.cache_clear()
-    try:
-        return fn()
-    finally:
-        del os.environ["ZWRT_NO_PALLAS"]
-        _use_pallas_backend.cache_clear()
-
-
-def test_clamp_kernel_matches_xla(pallas_interpret):
-    scene = zwrt.models.load_scene("cornell_box")
+@pytest.mark.parametrize("name", ["cornell_box", "emissive", "balls"])
+def test_clamp_kernel_matches_xla(name):
+    scene = zwrt.models.load_scene(name)
     r = Renderer(
         samples_per_pixel=4, max_ray_bounce_depth=6, seed=0,
         clamp_indirect=0.5,
     )
     fb_kernel = r.render(scene, 16, 16)
-    fb_ref = _xla_only(lambda: r.render(scene, 16, 16))
+    fb_ref = np.asarray(r.render_reference(scene, 16, 16))
     assert np.isfinite(fb_kernel).all()
     np.testing.assert_allclose(fb_kernel, fb_ref, rtol=1e-6, atol=1e-7)
 
 
-def test_clamp_caps_indirect_and_changes_image(pallas_interpret):
+def test_clamp_caps_indirect_and_changes_image():
     """On a caustic-prone config the clamp lowers the brightest pixels and
     never raises any pixel."""
     scene = zwrt.models.load_scene("cornell_box")
@@ -55,7 +44,7 @@ def test_clamp_caps_indirect_and_changes_image(pallas_interpret):
     assert fb1.max() == fb0.max()
 
 
-def test_clamp_preserves_direct_light(pallas_interpret):
+def test_clamp_preserves_direct_light():
     """A camera looking straight at an emitter reads the full emission even
     under an aggressive clamp (bounce-0 contributions are exempt)."""
     b = SceneBuilder()
@@ -70,7 +59,7 @@ def test_clamp_preserves_direct_light(pallas_interpret):
     np.testing.assert_allclose(fb[..., 0], 15.0, rtol=1e-5)
 
 
-def test_clamp_ignored_on_image_scenes(pallas_interpret):
+def test_clamp_ignored_on_image_scenes():
     scene = zwrt.models.load_scene("shrek_quads")
     base = Renderer(samples_per_pixel=2, max_ray_bounce_depth=4, seed=0)
     cl = Renderer(
@@ -83,7 +72,7 @@ def test_clamp_ignored_on_image_scenes(pallas_interpret):
     )
 
 
-def test_clamp_sharded_matches_single_device(pallas_interpret):
+def test_clamp_sharded_matches_single_device():
     from zig_weekend_raytracer_tpu.parallel import make_mesh, render_sharded
 
     scene = zwrt.models.load_scene("cornell_box")

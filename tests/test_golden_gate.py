@@ -1,9 +1,10 @@
 """Unit tests for the two-tier device-side correctness gate
-(utils/goldengate.py) — the policy bench.py and tools/tpu_golden_check.py
-use to compare hardware renders against CPU/XLA region statistics.
+(utils/goldengate.py) — the policy bench.py, chip_smoke.py and
+tools/golden_check.py use to compare device renders against CPU region
+statistics.
 
 Synthetic scenarios model the failure classes the gate was calibrated on
-(round 3, BASELINE/bench docstrings): chaotic-path decorrelation must PASS;
+(utils/goldengate.py docstring): chaotic-path decorrelation must PASS;
 systematic brightness shifts, localized pattern breaks, and NaNs must FAIL.
 """
 
@@ -43,7 +44,7 @@ def test_identical_passes():
 
 def test_chaotic_decorrelation_passes():
     """A few dim regions wobbling by ~1-3e-3 (the measured same-seed
-    CPU-vs-TPU decorrelation scale on rtw_final) must pass."""
+    cross-backend decorrelation scale on rtw_final) must pass."""
     fb, vals = make_ref(np.random.default_rng(2))
     ref_mean = float(fb.mean())
     # Perturb 3 dim regions by 2e-3 absolute (rel > 2% where mean ~0.06).

@@ -7,8 +7,8 @@ path CI runs).  A sampler, shading, or estimator regression that shifts
 brightness a few percent fails here; the statistical tests stay as a
 second tier that localizes WHAT broke.
 
-The Pallas kernels are pinned transitively: tests/test_pallas.py asserts
-kernel renders equal XLA renders.
+The goldens come from the per-bounce reference on the CPU; the production
+regenerating path must pass them as they stand.
 
 Reference analog: the examples/ artifacts role in
 j-helland/zig-weekend-raytracer (README.md:4) — pinned expected output.

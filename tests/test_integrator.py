@@ -143,6 +143,6 @@ def test_coplanar_light_zero_pdf_is_finite():
     assert np.isfinite(fb).all()
 
 
-# (Stream compaction and its invariance test were removed in round 3:
-# measured slower than the dead-ray work it saves on TPU — the Pallas
-# kernels' scalar tile-skip retires coherent dead tiles for free.)
+# (Stream compaction and its invariance test were removed earlier: it was
+# measured slower than the dead-ray work it saves on the first
+# accelerator; unmeasured on the GPU.)

@@ -59,3 +59,36 @@ def test_load_image_uses_native_or_fallback(tmp_path):
     assert img.ndim == 3 and img.shape[2] == 3
     assert img.dtype == np.uint8
     assert img.shape[0] > 100 and img.shape[1] > 100
+
+
+def test_library_name_follows_source_hash(tmp_path, monkeypatch):
+    """The built library's name hashes the sources, so an edited source
+    builds a new library instead of loading a stale one."""
+    import shutil
+
+    srcs = []
+    for src in native._SOURCES:
+        dst = tmp_path / os.path.basename(src)
+        shutil.copy(src, dst)
+        srcs.append(str(dst))
+    monkeypatch.setattr(native, "_SOURCES", tuple(srcs))
+    before = native.lib_path()
+    assert os.path.dirname(before) == native._BUILD_DIR
+    with open(srcs[0], "a") as f:
+        f.write("\n// edited\n")
+    assert native.lib_path() != before
+
+
+def test_build_is_cached(tmp_path, monkeypatch):
+    """build() compiles into the build directory once; a second call finds
+    the library for the same sources and does not rebuild it."""
+    monkeypatch.setattr(native, "_BUILD_DIR", str(tmp_path))
+    assert native.build()
+    path = native.lib_path()
+    assert os.path.exists(path)
+    mtime = os.path.getmtime(path)
+    assert native.build()
+    assert os.path.getmtime(path) == mtime
+    assert [p for p in os.listdir(tmp_path) if p.endswith(".so")] == [
+        os.path.basename(path)
+    ]

@@ -24,6 +24,18 @@ def test_progressive_equals_oneshot(scene, tmp_path):
     np.testing.assert_allclose(fb, oneshot, rtol=1e-5, atol=1e-7)
 
 
+def test_progressive_bvh_scene_equals_reference(tmp_path):
+    """Progressive batches on a BVH scene sum to the per-bounce reference
+    render (the batches start mid-sequence: sample0 > 0)."""
+    sc = zwrt.models.load_scene("balls")
+    base = Renderer(samples_per_pixel=6, max_ray_bounce_depth=3, seed=1)
+    ref = np.asarray(base.render_reference(sc, 12, 10))
+    fb = ProgressiveRenderer(
+        renderer=base, checkpoint_path=str(tmp_path / "ck.npz")
+    ).render(sc, 12, 10, batch_spp=4)
+    np.testing.assert_allclose(fb, ref, rtol=1e-5, atol=1e-7)
+
+
 def test_resume_from_checkpoint(scene, tmp_path):
     base = Renderer(samples_per_pixel=8, max_ray_bounce_depth=3, seed=2)
     oneshot = base.render(scene, 12, 12)
@@ -129,7 +141,7 @@ def test_cli_checkpoint_rejects_adaptive(tmp_path):
 
 
 def test_progressive_sharded_equals_oneshot(scene, tmp_path):
-    """Round 5: --checkpoint composes with --shard.  Sharded progressive
+    """--checkpoint composes with --shard.  Sharded progressive
     batches (render_batch_sharded) complete to the single-device one-shot
     image (tolerance: psum/f32 reassociation), in both shard modes."""
     from zig_weekend_raytracer_tpu.parallel import make_mesh
@@ -196,8 +208,9 @@ def test_progressive_shard_fingerprint_pins_decomposition(scene, tmp_path):
     np.testing.assert_allclose(fb, oneshot, rtol=1e-4, atol=1e-6)
 
 
-def test_progressive_sharded_kernel_path(pallas_interpret, scene, tmp_path):
-    """The production megakernel inside sharded progressive batches."""
+def test_progressive_sharded_kernel_path(scene, tmp_path):
+    """The production regenerating path inside sharded progressive
+    batches."""
     from zig_weekend_raytracer_tpu.parallel import make_mesh
 
     base = Renderer(samples_per_pixel=8, max_ray_bounce_depth=3, seed=2)
@@ -232,10 +245,10 @@ def test_cli_checkpoint_with_shard(tmp_path):
 
 
 def test_sharded_batches_share_one_compiled_fn(scene):
-    """Round-5 review fix: sample0 is a DYNAMIC input of the sharded
-    pipeline — every full batch of a progressive render must reuse one
-    compiled shard_map function (the first version baked sample0 into the
-    closure and recompiled per batch)."""
+    """sample0 is a DYNAMIC input of the sharded pipeline — every full
+    batch of a progressive render must reuse one compiled shard_map
+    function (baking sample0 into the closure would recompile per
+    batch)."""
     from zig_weekend_raytracer_tpu.parallel import (
         make_mesh, render_batch_sharded,
     )

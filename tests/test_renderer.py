@@ -1,5 +1,5 @@
-"""Renderer driver tests: plan-cache lifetime/keying and the balanced
-estimation-pass clamp (round-3 VERDICT/ADVICE items)."""
+"""Renderer driver tests: plan-cache lifetime/keying, the balanced
+estimation-pass clamp, and the coherence-sorted driver."""
 
 import gc
 import os
@@ -22,13 +22,10 @@ def _small_scene():
     return b.compile()
 
 
-# pallas_interpret fixture: shared in tests/conftest.py
-
-
-def test_plan_cache_is_scene_lifetime_bound(pallas_interpret):
+def test_plan_cache_is_scene_lifetime_bound():
     """The cost-map cache is keyed on the CompiledScene object (weakly):
     a dead scene's entries vanish, so a new same-shape scene can never
-    inherit a stale cost map (round-2 VERDICT weak #5: id() reuse)."""
+    inherit a stale cost map (id() values are reused after GC)."""
     r = Renderer(samples_per_pixel=1, max_ray_bounce_depth=3)
 
     scene_a = _small_scene()
@@ -51,7 +48,7 @@ def test_plan_cache_is_scene_lifetime_bound(pallas_interpret):
     assert "work" in cfg_entry and "plan" not in cfg_entry
 
 
-def test_plan_cache_config_bound(pallas_interpret):
+def test_plan_cache_config_bound():
     """Per-scene config entries are bounded (FIFO eviction)."""
     r = Renderer(samples_per_pixel=1, max_ray_bounce_depth=3)
     scene = _small_scene()
@@ -63,10 +60,10 @@ def test_plan_cache_config_bound(pallas_interpret):
     assert ("fake", 0) not in cache  # oldest evicted
 
 
-def test_balanced_driver_spp1_not_overbright(pallas_interpret):
+def test_balanced_driver_spp1_not_overbright():
     """With balancing enabled and spp == 1 the estimation pass must not
-    render out-of-range sample indices (ADVICE round 2: spp_est was
-    max(2, spp//16), unclamped)."""
+    render out-of-range sample indices (spp_est = max(2, spp//16) must be
+    clamped to spp)."""
     scene = _small_scene()
     plain = Renderer(samples_per_pixel=1, max_ray_bounce_depth=3).render(
         scene, 16, 16
@@ -78,7 +75,7 @@ def test_balanced_driver_spp1_not_overbright(pallas_interpret):
 
 
 def _tree_scene(n=72):
-    """>= TREE_MIN_PRIMS spheres so the compiled scene gets a group tree."""
+    """Enough spheres for the compiled scene to get a BVH."""
     rng = np.random.RandomState(7)
     b = SceneBuilder()
     grey = b.lambertian(b.solid_color((0.6, 0.6, 0.6)))
@@ -93,13 +90,13 @@ def _tree_scene(n=72):
     return b.compile()
 
 
-def test_coherent_driver_matches_plain(pallas_interpret, monkeypatch):
+def test_coherent_driver_matches_plain(monkeypatch):
     """ZWRT_COHERENT packing is a pure pixel permutation: bit-identical
-    framebuffer on a tree scene (VERDICT r4 #3)."""
+    framebuffer on a BVH scene."""
     scene = _tree_scene()
-    assert scene.compiled.has_sph_tree
+    assert scene.compiled.has_bvh
     # regen_min_wave=1 forces s_par == 1 (the coherent gate) at this size;
-    # coherent packing is DEFAULT ON for tree scenes, so the plain side
+    # coherent packing is DEFAULT ON for BVH scenes, so the plain side
     # opts out explicitly
     monkeypatch.setenv("ZWRT_COHERENT", "0")
     r = Renderer(samples_per_pixel=2, max_ray_bounce_depth=3,
@@ -118,7 +115,7 @@ def test_coherent_driver_matches_plain(pallas_interpret, monkeypatch):
     assert any(k[0] == "coh" for k in entry)
 
 
-def test_first_hit_probe_keys(pallas_interpret):
+def test_first_hit_probe_keys():
     """The probe returns the sphere each center pixel's primary ray hits
     (kind >= 0 on hits, -1 on background)."""
     import jax.numpy as jnp

@@ -3,10 +3,9 @@
 The reference has no RR, so the default (0 = off) preserves reference
 semantics and every golden.  With RR on the estimator stays unbiased —
 continuation probability p = clamp(max(throughput), RR_P_MIN, 1), survivors
-weighted 1/p — and the kernel twin mirrors the XLA integrator draw-for-draw
-(per-bounce hashrng site k=3), so the backends agree bitwise-closely."""
-
-import os
+weighted 1/p — and the regenerating wavefront draws exactly what the
+per-bounce reference draws (per-bounce hashrng site k=3, addressed by each
+lane's own bounce index), so the two agree bitwise-closely."""
 
 import numpy as np
 import pytest
@@ -15,36 +14,25 @@ import zig_weekend_raytracer_tpu as zwrt
 from zig_weekend_raytracer_tpu.render import Renderer
 
 
-def _xla_only(fn):
-    os.environ["ZWRT_NO_PALLAS"] = "1"
-    from zig_weekend_raytracer_tpu.ops.trace import _use_pallas_backend
-
-    _use_pallas_backend.cache_clear()
-    try:
-        return fn()
-    finally:
-        del os.environ["ZWRT_NO_PALLAS"]
-        _use_pallas_backend.cache_clear()
-
-
-def test_rr_kernel_matches_xla(pallas_interpret):
-    """Fused megakernel with RR on == XLA integrator with RR on (same
-    stream draws, same kill decisions)."""
-    scene = zwrt.models.load_scene("cornell_box")
+@pytest.mark.parametrize("name", ["cornell_box", "emissive", "balls"])
+def test_rr_kernel_matches_xla(name):
+    """Regenerating wavefront with RR on == per-bounce reference with RR
+    on (same stream draws, same kill decisions), brute and BVH scenes."""
+    scene = zwrt.models.load_scene(name)
     r = Renderer(
         samples_per_pixel=4, max_ray_bounce_depth=6, seed=0,
         russian_roulette=2,
     )
     fb_kernel = r.render(scene, 16, 16)
-    fb_ref = _xla_only(lambda: r.render(scene, 16, 16))
+    fb_ref = np.asarray(r.render_reference(scene, 16, 16))
     assert np.isfinite(fb_kernel).all()
     np.testing.assert_allclose(fb_kernel, fb_ref, rtol=1e-6, atol=1e-7)
 
 
-def test_rr_changes_the_sample_set(pallas_interpret):
+def test_rr_changes_the_sample_set():
     """RR on vs off must actually differ (kills happen) at a depth where
     tails exist — guards against the flag silently not reaching the
-    kernel."""
+    integrator."""
     scene = zwrt.models.load_scene("cornell_box")
     base = Renderer(samples_per_pixel=8, max_ray_bounce_depth=8, seed=0)
     rr = Renderer(
@@ -57,7 +45,7 @@ def test_rr_changes_the_sample_set(pallas_interpret):
     assert np.abs(fb1 - fb0).max() > 1e-4
 
 
-def test_rr_unbiased_mean(pallas_interpret):
+def test_rr_unbiased_mean():
     """The RR estimator converges to the plain estimator: image means agree
     within MC tolerance at a few hundred samples (an exact-expectation
     test is impossible; a 2% mean band at 256 spp on a 8x8 cornell crop
@@ -75,9 +63,9 @@ def test_rr_unbiased_mean(pallas_interpret):
     assert abs(m1 - m0) < 0.02 * m0, (m0, m1)
 
 
-def test_rr_ignored_on_image_scenes(pallas_interpret):
-    """Image-texture scenes gate RR off (kernel/XLA p would diverge on
-    deferred atlas factors): the render is identical to rr=0."""
+def test_rr_ignored_on_image_scenes():
+    """Image-texture scenes gate RR off: the render is identical to
+    rr=0."""
     scene = zwrt.models.load_scene("shrek_quads")
     base = Renderer(samples_per_pixel=2, max_ray_bounce_depth=4, seed=0)
     rr = Renderer(
@@ -91,7 +79,7 @@ def test_rr_ignored_on_image_scenes(pallas_interpret):
 
 
 @pytest.mark.parametrize("shard", ["samples", "rows"])
-def test_rr_sharded_matches_single_device(pallas_interpret, shard):
+def test_rr_sharded_matches_single_device(shard):
     """RR under shard_map: the content-addressed draws keep the render
     identical to the single-device RR render."""
     from zig_weekend_raytracer_tpu.parallel import make_mesh, render_sharded

@@ -4,9 +4,7 @@ The estimator keeps the reference's box pixel filter (jitter uniform over
 the pixel area, src/render.zig:115-121): rendering k^2 subpixels with
 spp/k^2 samples each and box-downsampling stratifies the SAME integral, so
 the mean must agree with the plain render and the variance must not
-regress.  The throughput motivation (tree-scene traversal coherence) is
-measured on hardware (BASELINE.md round-5 resolution scaling); these tests
-pin the estimator semantics on the CPU mesh.
+regress.  These tests pin the estimator semantics on the CPU mesh.
 """
 
 import numpy as np

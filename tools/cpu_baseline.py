@@ -6,8 +6,8 @@ canonical config (reference: README.md:36 — cornell_box, 400x400,
 this script times THIS repo's portable XLA-CPU path (the same integrator
 semantics, compiled by XLA for the host) at that config instead.
 
-Caveats recorded with the number (BASELINE.md):
-  * this host has ONE CPU core; the reference's M1 Pro runs 8-10 threads
+Caveats to record with the number:
+  * the host may have few CPU cores; the reference's M1 Pro runs 8-10 threads
     through its thread pool (src/main.zig:62-77) — a like-for-like
     multicore figure would be several times faster;
   * XLA-CPU is a portable vectorizing compiler, not a hand-tuned native

@@ -1,9 +1,10 @@
 """Generate pinned golden framebuffers for the regression tests.
 
-Renders every scene at a small fixed config on the CPU/XLA path (the same
-path CI runs — tests/conftest.py forces JAX_PLATFORMS=cpu) and stores the
-raw f32 framebuffers in tests/golden/.  The Pallas kernels are pinned
-transitively: tests/test_pallas.py asserts kernel == XLA on full renders.
+Renders every scene at a small fixed config through the per-bounce
+reference integrator on the CPU (the configuration tests/conftest.py sets)
+and stores the raw f32 framebuffers in tests/golden/.  The production
+regenerating path must match them (tests/test_golden_images.py), and
+tests/test_regen.py pins it to the reference directly.
 
 Regenerate ONLY when an intentional change to the estimator lands:
     JAX_PLATFORMS=cpu python tools/gen_goldens.py
@@ -48,7 +49,9 @@ def main() -> None:
             max_ray_bounce_depth=CONFIG["depth"],
             seed=CONFIG["seed"],
         )
-        fb = np.asarray(r.render(scene, CONFIG["width"], CONFIG["height"]))
+        fb = np.asarray(
+            r.render_reference(scene, CONFIG["width"], CONFIG["height"])
+        )
         assert np.isfinite(fb).all(), name
         np.savez_compressed(
             out_dir / f"{name}.npz", fb=fb.astype(np.float32), **CONFIG

@@ -63,7 +63,7 @@ def main() -> None:
     vdc = parse_vdc("VdCSobolMatrices = ")
     vdc_inv = parse_vdc("VdCSobolMatricesInv = ")
 
-    # Store u64 matrices as hi/lo u32 pairs: TPU has no native u64.
+    # Store u64 matrices as hi/lo u32 pairs (JAX runs in 32-bit mode).
     def split64(a):
         return (a >> np.uint64(32)).astype(np.uint32), (
             a & np.uint64(0xFFFFFFFF)

@@ -1,13 +1,12 @@
-"""Production-resolution quality + overhead for adaptive / denoise
-(VERDICT r3 #5).
+"""Production-resolution quality + overhead for adaptive / denoise.
 
-Round 3's MSE evidence for `--adaptive` and `--denoise` was 16x16/32x32
-tile-scale only.  This measures the real thing: 400x400 (configurable),
+Tile-scale MSE tests (16x16/32x32) say little about full frames.  This
+measures the real thing: 400x400 (configurable),
 MSE vs a 512-spp reference of the SAME backend, at 8 and 32 spp, for
 uniform / adaptive / denoised-uniform / adaptive+denoise, pooled over
 seeds -- plus the wall-clock of each pipeline so the quality-per-second
 story is honest (the denoise row includes its AOV pass at spp=4 and the
-filter itself; VERDICT r3 #8 makes the CLI count that cost too).
+filter itself, which the CLI's --stats counts too).
 
 Usage: python tools/quality_prodres.py [scene ...] [--size=N] [--spp=8,32]
                                        [--seeds=3]

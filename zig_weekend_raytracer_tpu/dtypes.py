@@ -1,7 +1,8 @@
 """Precision policy.
 
 The reference uses ``Real = f64`` throughout (reference: src/math/math.zig:40).
-On TPU, f64 is emulated and slow; the framework is f32-native.  The
+Accelerators run f64 far slower than f32 (or emulate it); the framework
+is f32-native.  The
 reference's float-robustness tricks are kept and retuned for f32:
 
   * AABB slab-test ULP slack: the reference multiplies tmax by a 4-ULP
@@ -42,8 +43,7 @@ INF = real_np(np.inf)
 ONE_MINUS_EPS = np.float32(np.nextafter(np.float32(1.0), np.float32(0.0)))
 
 # Rec.709 luminance weights, shared by every module that reduces RGB to
-# luminance — CRITICALLY the indirect-clamp twins (render/integrator.py and
-# ops/pallas_bounce.py), which must agree bitwise, plus the adaptive
+# luminance: the indirect clamp (render/integrator.py), the adaptive
 # sampler's noise proxy and the denoiser's edge stop.
 LUM_R = real_np(0.2126)
 LUM_G = real_np(0.7152)

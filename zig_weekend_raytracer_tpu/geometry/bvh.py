@@ -12,7 +12,7 @@ The pointer tree the reference walks recursively (:286-303) is linearized in
 DFS preorder with *miss links* ("escape indices"): on AABB hit an internal
 node falls through to index i+1; on miss (or after a leaf) control jumps to
 ``bvh_miss[i]``.  That turns traversal into a ``lax.while_loop`` over a
-per-ray node pointer — no stack, no recursion, TPU-friendly.
+per-ray node pointer — no stack, no recursion.
 
 AABBs are padded against degenerate axes exactly like the reference
 (src/math/aabb.zig:103-122) and motion-blurred spheres get the union of their
@@ -166,203 +166,4 @@ def build_bvh(
         "bvh_prim_kind": np.array(prim_kind, _I),
         "bvh_prim_idx": np.array(prim_idx, _I),
         "max_leaf_size": max_leaf_size,
-    }
-
-
-# ---------------------------------------------------------------------------
-# Group tree: the TPU-kernel acceleration structure
-# ---------------------------------------------------------------------------
-
-def build_group_tree(
-    bmins: np.ndarray, bmaxs: np.ndarray, group_size: int = 8,
-    leaf_groups: int = 1,
-):
-    """Preorder skip-link tree whose leaves each hold exactly ONE sublane
-    group of ``group_size`` primitives (padded with -1 slots).
-
-    This is the acceleration structure the Pallas traversal kernel walks
-    (ops/pallas_trace.py): the tile-lockstep traversal tests one node AABB
-    against a whole ray tile, so leaves are sized to the kernel's native
-    8-primitives-per-sublane-group unit — one leaf visit costs exactly one
-    brute-force group step.  Splits are median on the longest axis like the
-    reference's BVH build (src/entity.zig:240-253), but the median is
-    rounded to a group multiple so almost every leaf is full.
-
-    ``leaf_groups`` > 1 makes leaves span that many consecutive groups
-    (fatter leaves -> ~leaf_groups x fewer traversal steps, at the price of
-    coarser culling granularity).
-
-    Returns dict with:
-      * ``node_box``  (n_nodes, 6) f32  [min xyz, max xyz]
-      * ``node_link`` (n_nodes, 2) i32  [miss link, FIRST leaf group id or -1]
-      * ``prim_slots`` (n_groups * group_size,) i32 original primitive index
-        per leaf slot, -1 for padding; every leaf owns exactly
-        ``leaf_groups`` consecutive groups.
-    """
-    n = int(bmins.shape[0])
-    assert n > 0
-    leaf_span = group_size * leaf_groups
-
-    def build(span: np.ndarray) -> _Tree:
-        bmin = bmins[span].min(0)
-        bmax = bmaxs[span].max(0)
-        if span.shape[0] <= leaf_span:
-            return _Tree(bmin, bmax, prims=list(span))
-        axis = int(np.argmax(bmax - bmin))
-        key = bmins[span, axis]
-        span = span[np.argsort(key, kind="stable")]
-        # median rounded to a leaf-span multiple -> left subtree packs full
-        # leaves; only the rightmost leaf of the whole tree can be partial
-        mid = (span.shape[0] // 2 + leaf_span - 1) // leaf_span * leaf_span
-        mid = min(mid, span.shape[0] - 1)
-        return _Tree(
-            bmin, bmax, left=build(span[:mid]), right=build(span[mid:])
-        )
-
-    root = build(np.arange(n))
-
-    n_nodes = root.size
-    node_box = np.zeros((n_nodes, 6), _F)
-    node_link = np.zeros((n_nodes, 2), _I)
-    slots: List[int] = []
-    cursor = [0]
-
-    def emit(node: _Tree, miss: int) -> None:
-        i = cursor[0]
-        cursor[0] += 1
-        node_box[i, 0:3] = node.bmin
-        node_box[i, 3:6] = node.bmax
-        node_link[i, 0] = miss
-        if node.prims is not None:
-            node_link[i, 1] = len(slots) // group_size
-            slots.extend(int(p) for p in node.prims)
-            slots.extend([-1] * (leaf_span - len(node.prims)))
-        else:
-            node_link[i, 1] = -1
-            emit(node.left, miss=i + 1 + node.left.size)
-            emit(node.right, miss=miss)
-
-    import sys
-
-    old_limit = sys.getrecursionlimit()
-    sys.setrecursionlimit(max(old_limit, 4 * n_nodes + 64))
-    try:
-        emit(root, miss=n_nodes)
-    finally:
-        sys.setrecursionlimit(old_limit)
-
-    return {
-        "node_box": node_box,
-        "node_link": node_link,
-        "prim_slots": np.array(slots, _I),
-    }
-
-
-def build_group_tree_unified(
-    bmins: np.ndarray, bmaxs: np.ndarray, kinds: np.ndarray,
-    local_idx: np.ndarray, group_size: int = 8, leaf_groups: int = 1,
-):
-    """Single preorder skip-link tree over BOTH primitive kinds, with
-    kind-pure leaves.
-
-    The per-kind trees force every bounce to pay two sequential traversals
-    (sphere tree then quad tree) even when a ray's neighborhood contains
-    only one kind; one spatial tree lets a bounce walk ONE structure and
-    visit only the kinds its frustum actually overlaps (the reference's
-    single BVH over IEntity already has this property,
-    src/entity.zig:226-259).
-
-    Build is the same median split as ``build_group_tree``; a span that
-    fits a leaf but mixes kinds becomes one internal node with two
-    kind-pure leaf children.  Each leaf owns ``leaf_groups`` consecutive
-    groups in ITS KIND's slot array.
-
-    Returns dict with:
-      * ``node_box``  (n_nodes, 6) f32
-      * ``node_link`` (n_nodes, 3) i32 [miss link, leaf group id or -1,
-        leaf kind (PRIM_SPHERE/PRIM_QUAD, -1 interior)]
-      * ``sph_slots`` / ``quad_slots`` (n_groups_kind * group_size,) i32
-        KIND-LOCAL primitive index (via ``local_idx``) per leaf slot,
-        -1 for padding.
-    """
-    n = int(bmins.shape[0])
-    assert n > 0
-    leaf_span = group_size * leaf_groups
-
-    def build(span: np.ndarray) -> _Tree:
-        bmin = bmins[span].min(0)
-        bmax = bmaxs[span].max(0)
-        k = kinds[span]
-        pure = (k == k[0]).all()
-        if span.shape[0] <= leaf_span and pure:
-            return _Tree(bmin, bmax, prims=list(span))
-        if span.shape[0] <= leaf_span:
-            # mixed small span: two kind-pure leaf children
-            left = span[k == k[0]]
-            right = span[k != k[0]]
-            return _Tree(
-                bmin, bmax,
-                left=_Tree(bmins[left].min(0), bmaxs[left].max(0),
-                           prims=list(left)),
-                right=_Tree(bmins[right].min(0), bmaxs[right].max(0),
-                            prims=list(right)),
-            )
-        axis = int(np.argmax(bmax - bmin))
-        key = bmins[span, axis]
-        span = span[np.argsort(key, kind="stable")]
-        mid = (span.shape[0] // 2 + leaf_span - 1) // leaf_span * leaf_span
-        mid = min(mid, span.shape[0] - 1)
-        return _Tree(
-            bmin, bmax, left=build(span[:mid]), right=build(span[mid:])
-        )
-
-    root = build(np.arange(n))
-
-    n_nodes = root.size
-    node_box = np.zeros((n_nodes, 6), _F)
-    node_link = np.zeros((n_nodes, 3), _I)
-    slot_lists = {0: [], 1: []}  # PRIM_SPHERE, PRIM_QUAD
-    cursor = [0]
-
-    def emit(node: _Tree, miss: int) -> None:
-        i = cursor[0]
-        cursor[0] += 1
-        node_box[i, 0:3] = node.bmin
-        node_box[i, 3:6] = node.bmax
-        node_link[i, 0] = miss
-        if node.prims is not None:
-            kind = int(kinds[node.prims[0]])
-            slots = slot_lists[kind]
-            node_link[i, 1] = len(slots) // group_size
-            node_link[i, 2] = kind
-            slots.extend(int(local_idx[p]) for p in node.prims)
-            slots.extend([-1] * (leaf_span - len(node.prims)))
-        else:
-            node_link[i, 1] = -1
-            node_link[i, 2] = -1
-            emit(node.left, miss=i + 1 + node.left.size)
-            emit(node.right, miss=miss)
-
-    import sys
-
-    old_limit = sys.getrecursionlimit()
-    sys.setrecursionlimit(max(old_limit, 4 * n_nodes + 64))
-    try:
-        emit(root, miss=n_nodes)
-    finally:
-        sys.setrecursionlimit(old_limit)
-
-    def _slots(kind):
-        s = slot_lists[kind]
-        # every kind gets at least one (padded, unhittable) group so the
-        # kernel's attr tables are never empty
-        if not s:
-            s = [-1] * leaf_span
-        return np.array(s, _I)
-
-    return {
-        "node_box": node_box,
-        "node_link": node_link,
-        "sph_slots": _slots(PRIM_SPHERE),
-        "quad_slots": _slots(PRIM_QUAD),
     }

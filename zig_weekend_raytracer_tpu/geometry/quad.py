@@ -37,8 +37,7 @@ def hit_t(
     # triple-product rotation of the reference's alpha = w.(p x v),
     # beta = w.(u x p) (src/entity.zig:493-494): p.(v x w) / p.(w x u).
     # The rotated cross products are per-QUAD constants, so XLA hoists
-    # them out of the per-ray math (and the Pallas kernels precompute
-    # them as table columns) — the interior test drops from two in-loop
+    # them out of the per-ray math — the interior test drops from two in-loop
     # cross products to two dot products.
     alpha = v3.dot(planar, v3.cross(edge_v, w))
     beta = v3.dot(planar, v3.cross(w, edge_u))

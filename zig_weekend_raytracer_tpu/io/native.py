@@ -3,7 +3,8 @@
 The reference ships native components for exactly two jobs: parallel mmap'd
 file output (src/writer/writer.zig + src/writer/mmap.zig) and stb-based
 image decode (libs/zstbi).  Their equivalents here are ``libzwrt_native.so``
-(built from native/ with g++) exposing:
+(built from native/ with g++ at first use, into native/build/ under a
+name that hashes the sources) exposing:
 
   * zwrt_write_ppm(path, u8* pixels, w, h, n_threads) -> int
   * zwrt_decode_image(bytes, len, out_w, out_h, out_c) -> u8*  (stb_image)
@@ -17,9 +18,11 @@ gracefully to pure-Python fallbacks when the library hasn't been built;
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
 import os
 import subprocess
+import tempfile
 import threading
 from typing import Optional
 
@@ -27,33 +30,58 @@ import numpy as np
 
 log = logging.getLogger("zwrt")
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libzwrt_native.so"))
+_NATIVE_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "native")
+)
+_SOURCES = (
+    os.path.join(_NATIVE_DIR, "zwrt_native.cpp"),
+    os.path.join(_NATIVE_DIR, "third_party", "stb", "stb_image.h"),
+)
+_BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
+_CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
+def _source_hash() -> str:
+    """Hash of the compiler flags and every source file: the library's
+    name, so an edited source always builds a new library."""
+    h = hashlib.sha256(" ".join(_CXX_FLAGS).encode())
+    for path in _SOURCES:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def lib_path() -> str:
+    """Path of the library built from the current sources."""
+    return os.path.join(_BUILD_DIR, f"libzwrt_native-{_source_hash()}.so")
+
+
 def build(force: bool = False) -> bool:
-    """Compile the native library with g++ (cached)."""
-    src_dir = os.path.abspath(_NATIVE_DIR)
-    srcs = [os.path.join(src_dir, "zwrt_native.cpp")]
-    if not force and os.path.exists(_LIB_PATH) and all(
-        os.path.getmtime(_LIB_PATH) >= os.path.getmtime(s) for s in srcs
-    ):
+    """Compile the native library with g++ unless the library for the
+    current sources exists.  The compiler writes a temporary file that is
+    renamed into place, so concurrent builders never load a partial one."""
+    out = lib_path()
+    if not force and os.path.exists(out):
         return True
-    cmd = [
-        "g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-        "-o", _LIB_PATH, *srcs,
-    ]
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = ["g++", *_CXX_FLAGS, "-o", tmp, _SOURCES[0]]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True)
+        os.replace(tmp, out)
         return True
     except (subprocess.CalledProcessError, FileNotFoundError) as e:
         msg = getattr(e, "stderr", str(e))
         log.warning("native build failed, using Python fallbacks: %s", msg)
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -62,11 +90,10 @@ def _load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_LIB_PATH):
-            if not build():
-                return None
+        if not build():
+            return None
         try:
-            lib = ctypes.CDLL(_LIB_PATH, use_errno=True)
+            lib = ctypes.CDLL(lib_path(), use_errno=True)
         except OSError as e:
             log.warning("failed to load native lib: %s", e)
             return None
@@ -140,4 +167,4 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
 
 if __name__ == "__main__":
     ok = build(force=True)
-    print("native build:", "ok" if ok else "FAILED", "->", _LIB_PATH)
+    print("native build:", "ok" if ok else "FAILED", "->", lib_path())

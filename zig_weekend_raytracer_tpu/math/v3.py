@@ -1,12 +1,10 @@
-"""SoA 3-vectors: the TPU-native vector representation.
+"""SoA 3-vectors: the wavefront's vector representation.
 
-TPU vector registers are (8 sublanes x 128 lanes) and XLA maps an array's
-*minor* dimension onto lanes.  An ``(N, 3)`` ray array therefore wastes
-125/128 of every register and 42x the HBM bandwidth.  ``V3`` stores x/y/z as
-three independent ``(N,)`` arrays, so every elementwise op runs at full lane
-utilization — this is the single most important layout decision in the
-framework (the analog of the reference's SIMD ``@Vector`` types,
-src/math/math.zig:40-47, transposed for wavefront batching).
+``V3`` stores x/y/z as three independent ``(N,)`` arrays instead of one
+``(N, 3)`` array, so every elementwise op works on contiguous full-width
+arrays and neighbouring lanes read neighbouring memory — the analog of the
+reference's SIMD ``@Vector`` types (src/math/math.zig:40-47), transposed
+for wavefront batching.
 
 ``V3`` is a registered pytree; scene tables and path state carry V3 fields
 directly through ``jit`` / ``shard_map`` / ``lax`` control flow.

@@ -1,5 +1,5 @@
-"""Hot-path compute ops: closest-hit tracing (brute-force and stackless BVH),
-with Pallas-fused variants where profitable.
+"""Hot-path compute ops: closest-hit tracing (brute-force and stackless BVH)
+and the shading-attribute fetch.
 """
 
 from . import trace

@@ -2,13 +2,7 @@
 
 The reference reads hit attributes through pointers (HitRecord.material ->
 IMaterial -> ITexture, src/hitrecord.zig:11).  The wavefront analog is a
-gather, and gathers on TPU have a sharp cost profile (measured, 2M rays):
-
-  * tables <= ~64 entries lower to select chains        (~0.1 ms / field)
-  * larger tables lower to serialized scalar gathers    (~24 ms / field!)
-  * but a packed ROW gather (P, 32) costs ~8 ms total   (width-insensitive)
-
-So scene compilation *denormalizes* the material + texture of every
+gather per field, so scene compilation *denormalizes* the material + texture of every
 primitive into a flat per-prim record (``scene.shade_rows``): geometry
 columns (center/radius/uv-rotation for spheres; start/edges/normal/w for
 quads) and shading columns (material type, texture kind, two RGB slots for
@@ -55,7 +49,6 @@ _C_REFRACT = 27
 _C_IMG2 = 28      # checker ODD child image id (-1 = none)
 _C_TEXID = 29     # original texture id (general-walk fallback for scenes
                   # with checker-in-checker nesting)
-_C_MATID = 30     # index into the deduped material table (scene.mat_lut)
 SHADE_BLOCK = 14  # _C_MAT.._C_TEXID: the per-material shading column span
 RECORD_WIDTH = 32
 

@@ -3,10 +3,10 @@
 Two interchangeable strategies (selected by ``CompiledScene.has_bvh``):
 
   * **Brute force**: every ray tests every primitive, blocked over the
-    primitive axis so transients stay bounded.  This is the TPU-native
-    replacement of ``EntityCollection.hit``'s linear scan
-    (reference: src/entity.zig:342-368) — on a vector machine testing a few
-    hundred primitives per ray in SoA form beats divergent tree walking.
+    primitive axis so transients stay bounded.  This replaces
+    ``EntityCollection.hit``'s linear scan
+    (reference: src/entity.zig:342-368) for scenes of up to a few hundred
+    primitives, whose tables stay in cache.
   * **Stackless BVH traversal**: per-ray node pointers walk the preorder
     skip-link layout built in ``geometry.bvh`` inside one
     ``lax.while_loop``; the loop exits when every ray in the wavefront has
@@ -20,16 +20,11 @@ reference's HitRecord (src/hitrecord.zig:6-21).
 
 Ray vectors are ``math.v3.V3`` (separate x/y/z lanes); every primitive is
 tested as broadcast scalars against the (N,) ray lanes, never as an (N, P)
-matrix (whose tiny minor dim would waste the 128-lane axis).  On TPU both
-strategies are superseded by the fused Pallas kernels in
-``ops/pallas_trace.py``; the XLA paths remain the portable reference
-implementation (CPU tests validate the Pallas kernels against them).
+matrix, so XLA fuses the scan into one elementwise loop per ray.
 """
 
 from __future__ import annotations
 
-import functools
-import os
 from typing import NamedTuple
 
 import jax
@@ -76,34 +71,12 @@ def closest_hit(
 ) -> Hit:
     """Closest hit for a ray wavefront.  ``active`` (bool (N,), optional)
     lets terminated paths skip BVH traversal entirely, shortening the
-    lockstep while_loop once most of the wavefront is dead.
-
-    On TPU the fused Pallas kernel (ops/pallas_trace.py) handles all tracing
-    (scene resident in VMEM, zero HBM traffic per primitive).  The XLA
-    formulations below remain the portable path (CPU tests, interpreters).
-    """
-    if _use_pallas_backend():
-        from .pallas_trace import closest_hit_pallas
-
-        t, kind, idx = closest_hit_pallas(
-            scene, origin, direction, time, t_min, active=active
-        )
-        return Hit(t=t, kind=kind, idx=idx)
+    lockstep while_loop once most of the wavefront is dead."""
     if scene.has_bvh:
         return _closest_hit_bvh(
             scene, origin, direction, time, t_min, t_max, active
         )
     return _closest_hit_brute(scene, origin, direction, time, t_min, t_max)
-
-
-@functools.lru_cache(maxsize=1)
-def _use_pallas_backend() -> bool:
-    if os.environ.get("ZWRT_NO_PALLAS"):
-        return False
-    if os.environ.get("ZWRT_PALLAS_INTERPRET"):
-        # Force the Pallas path in interpreter mode (CPU-testable kernels).
-        return True
-    return jax.default_backend() != "cpu"
 
 
 # ---------------------------------------------------------------------------
@@ -114,10 +87,8 @@ def _closest_hit_brute(scene, origin, direction, time, t_min, t_max) -> Hit:
     """Linear scan over the primitive tables.
 
     Each primitive becomes *broadcast scalars* against the (N,) ray lanes —
-    never an (N, P) matrix, whose tiny minor dim would waste 120+ of the 128
-    VPU lanes (measured 10-20x slower).  Small tables unroll in Python;
-    large ones run the identical math in a ``fori_loop`` with dynamically
-    sliced scalars.
+    never an (N, P) matrix.  Small tables unroll in Python; large ones run
+    the identical math in a ``fori_loop`` with dynamically sliced scalars.
     """
     n = origin.shape[0]
     best = Hit(

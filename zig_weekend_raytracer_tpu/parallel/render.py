@@ -5,14 +5,11 @@ Because all randomness is content-addressed by global ray id
 single-device render — this is verified by the chip-count-invariance tests
 (tests/test_parallel.py), the distributed analog of golden-image testing.
 
-Each device runs the PRODUCTION single-chip path inside its shard: the
-regenerating-wavefront megakernel (``renderer._render_band_regen`` →
-``ops/pallas_bounce.py``) when the Pallas backend supports the scene, and
-the portable per-bounce pipeline (``renderer._render_band``) otherwise
-(CPU runs, emissive-image / nested-checker scenes).  Per-chip transient
-HBM is bounded exactly like the single-chip path — a 400x400 @1000spp
-render sharded 8 ways never materializes more than one band of rays per
-chip.  Neither ``spp`` nor ``height`` needs to divide the device count:
+Each device runs the single-device production path inside its shard:
+the regenerating wavefront (``renderer._render_band_regen`` and
+``renderer._render_band_balanced``).  Per-device transient memory is
+bounded exactly like the single-device path — a 400x400 @1000spp render
+sharded 8 ways never materializes more than one band of rays per device.  Neither ``spp`` nor ``height`` needs to divide the device count:
 shards are padded and the padded samples/rows are masked out (samples) or
 sliced off (rows), the multi-chip analog of the reference's arbitrary work
 decomposition (src/render.zig:55-73).
@@ -30,10 +27,10 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..dtypes import real
-from ..render.camera import camera_consts, camera_params
+from ..render.camera import camera_consts
 from ..render.renderer import (
+    LANE_BLOCK,
     Renderer,
-    _render_band,
     _render_band_balanced,
     _render_band_regen,
     pick_tile,
@@ -46,13 +43,6 @@ from .mesh import AXIS
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def _use_production_path(scene: Scene) -> bool:
-    from ..ops.pallas_bounce import supports_bounce_kernel
-    from ..ops.trace import _use_pallas_backend
-
-    return _use_pallas_backend() and supports_bounce_kernel(scene.compiled)
 
 
 # Memoized jitted shard_map closures.  Without this, every render_sharded
@@ -82,17 +72,12 @@ def _memo_sharded(compiled, key, build):
     return fn
 
 
-# Cost-sorted tile plans for the sharded path, mirroring the single-chip
+# Cost-sorted lane plans for the sharded path, mirroring the single-device
 # Renderer._render_band_sorted_driver (renderer.py): the FIRST sharded
-# render of a config runs the plain kernel with the per-lane work counter
-# as a free side-output (psum'd across devices — the total per-pixel cost
-# is exactly the right signal for any device's sample/row slice); later
-# renders feed cost-sorted (px, py) plans to the balanced kernel so each
-# ray tile holds similar-cost lanes.  Without this, render_sharded left
-# the single-chip sorter's win on the table: the round-4 shard-overhead
-# measurement (tpu_runs/r4/17) read as "27% shard_map overhead" when the
-# plain direct path measured 0.994 s vs sharded 0.936 s — shard_map
-# plumbing itself costs nothing; the whole gap was this missing plan.
+# render of a config runs the plain regenerating band with the per-lane
+# work counter (psum'd across devices — the total per-pixel cost is the
+# right signal for any device's sample/row slice); later renders feed
+# cost-sorted (px, py) plans to the balanced band.
 _sharded_plan_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
@@ -112,7 +97,7 @@ def _memo_plan_entry(compiled, key):
 
 def _sorted_plan(work_lane, width, band_rows, rows_eff, band_y0, n_items):
     """(px, py, live) for one band: pixels sorted by measured cost
-    (descending, stable), BLK-padded to ``n_items``; ``live`` marks real
+    (descending, stable), padded to ``n_items``; ``live`` marks real
     items (padding gets live=0 -> the worker gives them an empty sample
     range).  Same construction as the single-chip sorted driver; the
     per-device sample range is NOT baked here — workers derive (s0, s1)
@@ -145,11 +130,10 @@ def _plan_items(rows: int, width: int, blk: int) -> int:
 
 def _sortable(compiled, s_par) -> bool:
     # Same gate as render_device: cost-sorting needs s_par == 1 (one lane
-    # owns a pixel's whole sample range) and no group trees (traversal
-    # needs spatially tight tile frusta, which sorting destroys).
+    # owns a pixel's whole sample range) and a scene without a BVH.
     return (
         s_par == 1
-        and not (compiled.has_sph_tree or compiled.has_quad_tree)
+        and not compiled.has_bvh
         and not os.environ.get("ZWRT_NO_SORT")
     )
 
@@ -174,14 +158,14 @@ def render_sharded(
 ):
     """Render across a device mesh.  Returns (H, W, 3) f32 averaged samples.
 
-    ``shard='samples'``: every chip renders all pixels with a disjoint sample
-    slice; framebuffers are averaged with one ``psum`` over ICI.
+    ``shard='samples'``: every device renders all pixels with a disjoint
+    sample slice; framebuffers are summed with one ``psum``.
 
-    ``shard='rows'``: chips render disjoint row bands (zero collectives; the
-    direct analog of the reference's pixel-block partitioning,
+    ``shard='rows'``: devices render disjoint row bands (zero collectives;
+    the direct analog of the reference's pixel-block partitioning,
     src/render.zig:60).
 
-    ``sample0``/``sample_count`` (round 5) restrict the render to the
+    ``sample0``/``sample_count`` restrict the render to the
     sample-index range [sample0, sample0+sample_count) — the sharded twin
     of render/progressive.py:_render_batch, so progressive checkpoints
     compose with sharding (render_batch_sharded wraps this).  ``sample0``
@@ -217,319 +201,239 @@ def render_sharded(
         **({"regen_min_wave": regen_min_wave}
            if regen_min_wave is not None else {}),
     )
-    production = _use_production_path(scene)
-    cam = camera_params(scene.camera, width, height)
     cam_c = camera_consts(scene.camera, width, height)
     cfg_key = (
-        shard, production, width, height, spp, spp_now, max_depth, sampler,
+        shard, width, height, spp, spp_now, max_depth, sampler,
         has_dof, rr, clamp, max_rays_per_chunk, regen_min_wave, cam_c,
         tuple(int(d.id) for d in mesh.devices.flat), tuple(mesh.axis_names),
     )
 
     if shard == "samples":
         # Pad the sample axis: devices own ceil(spp_now / n_dev) sample
-        # indices each; indices >= s_end never render (regen: per-lane
-        # limit; band: masked inside _render_band).
+        # indices each; indices >= s_end never render (per-lane limit).
         spp_local = _cdiv(spp_now, n_dev)
 
-        if production:
-            s_par, band_rows = chunker.regen_geometry(
-                width, height, spp_local
-            )
-            n_bands = _cdiv(height, band_rows)
-            h_pad = n_bands * band_rows
-            sortable = _sortable(compiled, s_par)
-            plan_entry = (
-                _memo_plan_entry(compiled, cfg_key + (seed,))
-                if sortable else None
-            )
+        s_par, band_rows = chunker.regen_geometry(
+            width, height, spp_local
+        )
+        n_bands = _cdiv(height, band_rows)
+        h_pad = n_bands * band_rows
+        sortable = _sortable(compiled, s_par)
+        plan_entry = (
+            _memo_plan_entry(compiled, cfg_key + (seed,))
+            if sortable else None
+        )
 
-            if sortable and "plans" in plan_entry:
-                # Steady state: cost-sorted plans through the balanced
-                # kernel; per-device sample range derived from axis_index.
-                plans = plan_entry["plans"]
+        if sortable and "plans" in plan_entry:
+            # Steady state: cost-sorted plans through the balanced
+            # kernel; per-device sample range derived from axis_index.
+            plans = plan_entry["plans"]
 
-                def worker_sorted(compiled, seed, s_base, s_cap, *plan_flat):
-                    di = jax.lax.axis_index(AXIS)
-                    s0 = s_base + (di * spp_local).astype(jnp.int32)
-                    limit = jnp.minimum(s_cap, s0 + jnp.int32(spp_local))
-                    fb = jnp.zeros((h_pad, width, 3), real)
-                    for b in range(n_bands):
-                        pxd, pyd, lived = plan_flat[3 * b : 3 * b + 3]
-                        out = _render_band_balanced(
-                            compiled, seed, jnp.int32(b * band_rows),
-                            pxd, pyd,
-                            jnp.where(lived > 0, s0, 0),
-                            jnp.where(lived > 0, limit, 0),
-                            width=width, height=height, band_rows=band_rows,
-                            spp=spp, max_depth=max_depth, sampler=sampler,
-                            has_dof=has_dof, cam_consts=cam_c,
-                            rr=rr, clamp=clamp,
-                        )
-                        fb = fb.at[b * band_rows : (b + 1) * band_rows].add(
-                            out
-                        )
-                    return jax.lax.psum(fb[:height], AXIS)
-
-                flat = tuple(a for p in plans for a in p)
-                fn = _memo_sharded(
-                    compiled, cfg_key + ("sorted",), lambda: jax.jit(
-                        jax.shard_map(
-                            worker_sorted, mesh=mesh,
-                            in_specs=(P(),) * 4 + (P(),) * len(flat),
-                            out_specs=P(), check_vma=False,
-                        )
-                    )
-                )
-                return _norm(fn(compiled, seed_arr, s_base_arr, s_cap_arr,
-                                *flat))
-
-            def worker(compiled, seed, s_base, s_cap):
+            def worker_sorted(compiled, seed, s_base, s_cap, *plan_flat):
                 di = jax.lax.axis_index(AXIS)
                 s0 = s_base + (di * spp_local).astype(jnp.int32)
                 limit = jnp.minimum(s_cap, s0 + jnp.int32(spp_local))
                 fb = jnp.zeros((h_pad, width, 3), real)
-                works = []
                 for b in range(n_bands):
-                    out = _render_band_regen(
-                        compiled, seed, jnp.int32(b * band_rows), s0,
+                    pxd, pyd, lived = plan_flat[3 * b : 3 * b + 3]
+                    out = _render_band_balanced(
+                        compiled, seed, jnp.int32(b * band_rows),
+                        pxd, pyd,
+                        jnp.where(lived > 0, s0, 0),
+                        jnp.where(lived > 0, limit, 0),
                         width=width, height=height, band_rows=band_rows,
-                        s_par=s_par, spp=spp, sample_limit=limit,
-                        max_depth=max_depth, sampler=sampler,
-                        has_dof=has_dof, cam_consts=cam_c, rr=rr, clamp=clamp,
-                        want_work=sortable,
+                        spp=spp, max_depth=max_depth, sampler=sampler,
+                        has_dof=has_dof, cam_consts=cam_c,
+                        rr=rr, clamp=clamp,
                     )
-                    if sortable:
-                        out, wk = out
-                        works.append(wk)
-                    fb = fb.at[b * band_rows : (b + 1) * band_rows].add(out)
-                fbp = jax.lax.psum(fb[:height], AXIS)
-                if sortable:
-                    return fbp, jax.lax.psum(jnp.stack(works), AXIS)
-                return fbp
+                    fb = fb.at[b * band_rows : (b + 1) * band_rows].add(
+                        out
+                    )
+                return jax.lax.psum(fb[:height], AXIS)
 
+            flat = tuple(a for p in plans for a in p)
             fn = _memo_sharded(
-                compiled, cfg_key + ("work" if sortable else "plain",),
-                lambda: jax.jit(
+                compiled, cfg_key + ("sorted",), lambda: jax.jit(
                     jax.shard_map(
-                        worker, mesh=mesh, in_specs=(P(),) * 4,
-                        out_specs=(P(), P()) if sortable else P(),
-                        check_vma=False,
+                        worker_sorted, mesh=mesh,
+                        in_specs=(P(),) * 4 + (P(),) * len(flat),
+                        out_specs=P(), check_vma=False,
                     )
                 )
             )
-            if not sortable:
-                return _norm(fn(compiled, seed_arr, s_base_arr, s_cap_arr))
-            fb, works = fn(compiled, seed_arr, s_base_arr, s_cap_arr)
-            works = np.asarray(works)
-            plan_entry["plans"] = [
-                _sorted_plan(
-                    works[b], width, band_rows,
-                    min(band_rows, height - b * band_rows),
-                    b * band_rows,
-                    _plan_items(
-                        min(band_rows, height - b * band_rows), width,
-                        compiled.rows * 128,
-                    ),
-                )
-                for b in range(n_bands)
-            ]
-            return _norm(fb)
+            return _norm(fn(compiled, seed_arr, s_base_arr, s_cap_arr,
+                            *flat))
 
-        spp_chunk, band_rows = chunker.chunk_geometry(
-            scene, width, height, spp_local
-        )
-        n_bands = _cdiv(height, band_rows)
-        n_chunks = _cdiv(spp_local, spp_chunk)
-        h_pad = n_bands * band_rows
-
-        def worker(compiled, cam, seed, s_base, s_cap):
+        def worker(compiled, seed, s_base, s_cap):
             di = jax.lax.axis_index(AXIS)
-            s0_base = s_base + (di * spp_local).astype(jnp.int32)
-            # Per-device sample cap (round-5 fix): when spp_chunk does not
-            # divide spp_local, the chunk grid overshoots into the next
-            # device's slice — without this dynamic limit those samples
-            # were double-counted (the global `sidx < spp` mask only
-            # guards the final device's padding).
-            limit = jnp.minimum(s_cap, s0_base + jnp.int32(spp_local))
+            s0 = s_base + (di * spp_local).astype(jnp.int32)
+            limit = jnp.minimum(s_cap, s0 + jnp.int32(spp_local))
             fb = jnp.zeros((h_pad, width, 3), real)
+            works = []
             for b in range(n_bands):
-                for c in range(n_chunks):
-                    out = _render_band(
-                        compiled, cam, seed,
-                        jnp.int32(b * band_rows),
-                        s0_base + jnp.int32(c * spp_chunk),
-                        width=width, height=height, band_rows=band_rows,
-                        spp_chunk=spp_chunk, spp=spp, max_depth=max_depth,
-                        sampler=sampler, has_dof=has_dof,
-                        sample_limit=limit, rr=rr, clamp=clamp,
-                    )
-                    fb = fb.at[b * band_rows : (b + 1) * band_rows].add(out)
-            return jax.lax.psum(fb[:height], AXIS)
+                out = _render_band_regen(
+                    compiled, seed, jnp.int32(b * band_rows), s0,
+                    width=width, height=height, band_rows=band_rows,
+                    s_par=s_par, spp=spp, sample_limit=limit,
+                    max_depth=max_depth, sampler=sampler,
+                    has_dof=has_dof, cam_consts=cam_c, rr=rr, clamp=clamp,
+                    want_work=sortable,
+                )
+                if sortable:
+                    out, wk = out
+                    works.append(wk)
+                fb = fb.at[b * band_rows : (b + 1) * band_rows].add(out)
+            fbp = jax.lax.psum(fb[:height], AXIS)
+            if sortable:
+                return fbp, jax.lax.psum(jnp.stack(works), AXIS)
+            return fbp
 
-        fn = _memo_sharded(compiled, cfg_key, lambda: jax.jit(
-            jax.shard_map(
-                worker, mesh=mesh, in_specs=(P(),) * 5, out_specs=P(),
-                check_vma=False,
+        fn = _memo_sharded(
+            compiled, cfg_key + ("work" if sortable else "plain",),
+            lambda: jax.jit(
+                jax.shard_map(
+                    worker, mesh=mesh, in_specs=(P(),) * 4,
+                    out_specs=(P(), P()) if sortable else P(),
+                    check_vma=False,
+                )
             )
-        ))
-        return _norm(fn(compiled, cam, seed_arr, s_base_arr, s_cap_arr))
+        )
+        if not sortable:
+            return _norm(fn(compiled, seed_arr, s_base_arr, s_cap_arr))
+        fb, works = fn(compiled, seed_arr, s_base_arr, s_cap_arr)
+        works = np.asarray(works)
+        plan_entry["plans"] = [
+            _sorted_plan(
+                works[b], width, band_rows,
+                min(band_rows, height - b * band_rows),
+                b * band_rows,
+                _plan_items(
+                    min(band_rows, height - b * band_rows), width,
+                    LANE_BLOCK,
+                ),
+            )
+            for b in range(n_bands)
+        ]
+        return _norm(fb)
 
     if shard == "rows":
         # Pad the row axis: devices own ceil(height / n_dev) rows each;
         # ray_grid clamps padded rows and the result is sliced to height.
         rows_local = _cdiv(height, n_dev)
 
-        if production:
-            s_par, band_rows = chunker.regen_geometry(
-                width, rows_local, spp_now
-            )
-            band_rows = min(band_rows, rows_local)
-            n_bands = _cdiv(rows_local, band_rows)
-            rows_pad = n_bands * band_rows
-            sortable = _sortable(compiled, s_par)
-            plan_entry = (
-                _memo_plan_entry(compiled, cfg_key + (seed,))
-                if sortable else None
-            )
-
-            if sortable and "plans" in plan_entry:
-                # Steady state: per-(device, band) cost-sorted plans.  Row
-                # shards see different pixels, so plans are stacked along a
-                # leading device axis and sharded in with P(AXIS); every
-                # device's slice has the same (full-band) item count.
-                plans = plan_entry["plans"]  # [band] -> (px, py, live),
-                #                              each (n_dev, n_items)
-
-                def worker_sorted(compiled, seed, s_base, s_cap, *plan_flat):
-                    di = jax.lax.axis_index(AXIS)
-                    y0_base = (di * rows_local).astype(jnp.int32)
-                    fb = jnp.zeros((rows_pad, width, 3), real)
-                    for b in range(n_bands):
-                        pxd, pyd, lived = (
-                            a[0] for a in plan_flat[3 * b : 3 * b + 3]
-                        )
-                        out = _render_band_balanced(
-                            compiled, seed,
-                            y0_base + jnp.int32(b * band_rows),
-                            pxd, pyd,
-                            jnp.where(lived > 0, s_base, 0),
-                            jnp.where(lived > 0, s_cap, 0),
-                            width=width, height=height, band_rows=band_rows,
-                            spp=spp, max_depth=max_depth, sampler=sampler,
-                            has_dof=has_dof, cam_consts=cam_c,
-                            rr=rr, clamp=clamp,
-                        )
-                        fb = fb.at[b * band_rows : (b + 1) * band_rows].add(
-                            out
-                        )
-                    return fb[:rows_local]
-
-                flat = tuple(a for p in plans for a in p)
-                fn = _memo_sharded(
-                    compiled, cfg_key + ("sorted",), lambda: jax.jit(
-                        jax.shard_map(
-                            worker_sorted, mesh=mesh,
-                            in_specs=(P(),) * 4 + (P(AXIS),) * len(flat),
-                            out_specs=P(AXIS), check_vma=False,
-                        )
-                    )
-                )
-                return _norm(fn(
-                    compiled, seed_arr, s_base_arr, s_cap_arr, *flat
-                )[:height])
-
-            def worker(compiled, seed, s_base, s_cap):
-                di = jax.lax.axis_index(AXIS)
-                y0_base = (di * rows_local).astype(jnp.int32)
-                fb = jnp.zeros((rows_pad, width, 3), real)
-                works = []
-                for b in range(n_bands):
-                    out = _render_band_regen(
-                        compiled, seed,
-                        y0_base + jnp.int32(b * band_rows), s_base,
-                        width=width, height=height, band_rows=band_rows,
-                        s_par=s_par, spp=spp, sample_limit=s_cap,
-                        max_depth=max_depth, sampler=sampler,
-                        has_dof=has_dof, cam_consts=cam_c, rr=rr, clamp=clamp,
-                        want_work=sortable,
-                    )
-                    if sortable:
-                        out, wk = out
-                        works.append(wk)
-                    fb = fb.at[b * band_rows : (b + 1) * band_rows].add(out)
-                fbd = fb[:rows_local]
-                if sortable:
-                    return fbd, jnp.stack(works)[None]
-                return fbd
-
-            fn = _memo_sharded(
-                compiled, cfg_key + ("work" if sortable else "plain",),
-                lambda: jax.jit(
-                    jax.shard_map(
-                        worker, mesh=mesh, in_specs=(P(),) * 4,
-                        out_specs=(P(AXIS), P(AXIS)) if sortable else P(AXIS),
-                        check_vma=False,
-                    )
-                )
-            )
-            if not sortable:
-                return _norm(
-                    fn(compiled, seed_arr, s_base_arr, s_cap_arr)[:height]
-                )
-            fb, works = fn(compiled, seed_arr, s_base_arr, s_cap_arr)
-            works = np.asarray(works)  # (n_dev, n_bands, n_lanes)
-            n_items = _plan_items(band_rows, width, compiled.rows * 128)
-            plans = []
-            for b in range(n_bands):
-                per_dev = []
-                for d in range(n_dev):
-                    y0 = d * rows_local + b * band_rows
-                    per_dev.append(_sorted_plan(
-                        works[d, b], width, band_rows,
-                        min(band_rows, height - y0), y0, n_items,
-                    ))
-                plans.append(tuple(
-                    jnp.stack([p[i] for p in per_dev]) for i in range(3)
-                ))
-            plan_entry["plans"] = plans
-            return _norm(fb[:height])
-
-        spp_chunk, band_rows = chunker.chunk_geometry(
-            scene, width, rows_local, spp_now
+        s_par, band_rows = chunker.regen_geometry(
+            width, rows_local, spp_now
         )
         band_rows = min(band_rows, rows_local)
         n_bands = _cdiv(rows_local, band_rows)
-        n_chunks = _cdiv(spp_now, spp_chunk)
         rows_pad = n_bands * band_rows
+        sortable = _sortable(compiled, s_par)
+        plan_entry = (
+            _memo_plan_entry(compiled, cfg_key + (seed,))
+            if sortable else None
+        )
 
-        def worker(compiled, cam, seed, s_base, s_cap):
+        if sortable and "plans" in plan_entry:
+            # Steady state: per-(device, band) cost-sorted plans.  Row
+            # shards see different pixels, so plans are stacked along a
+            # leading device axis and sharded in with P(AXIS); every
+            # device's slice has the same (full-band) item count.
+            plans = plan_entry["plans"]  # [band] -> (px, py, live),
+            #                              each (n_dev, n_items)
+
+            def worker_sorted(compiled, seed, s_base, s_cap, *plan_flat):
+                di = jax.lax.axis_index(AXIS)
+                y0_base = (di * rows_local).astype(jnp.int32)
+                fb = jnp.zeros((rows_pad, width, 3), real)
+                for b in range(n_bands):
+                    pxd, pyd, lived = (
+                        a[0] for a in plan_flat[3 * b : 3 * b + 3]
+                    )
+                    out = _render_band_balanced(
+                        compiled, seed,
+                        y0_base + jnp.int32(b * band_rows),
+                        pxd, pyd,
+                        jnp.where(lived > 0, s_base, 0),
+                        jnp.where(lived > 0, s_cap, 0),
+                        width=width, height=height, band_rows=band_rows,
+                        spp=spp, max_depth=max_depth, sampler=sampler,
+                        has_dof=has_dof, cam_consts=cam_c,
+                        rr=rr, clamp=clamp,
+                    )
+                    fb = fb.at[b * band_rows : (b + 1) * band_rows].add(
+                        out
+                    )
+                return fb[:rows_local]
+
+            flat = tuple(a for p in plans for a in p)
+            fn = _memo_sharded(
+                compiled, cfg_key + ("sorted",), lambda: jax.jit(
+                    jax.shard_map(
+                        worker_sorted, mesh=mesh,
+                        in_specs=(P(),) * 4 + (P(AXIS),) * len(flat),
+                        out_specs=P(AXIS), check_vma=False,
+                    )
+                )
+            )
+            return _norm(fn(
+                compiled, seed_arr, s_base_arr, s_cap_arr, *flat
+            )[:height])
+
+        def worker(compiled, seed, s_base, s_cap):
             di = jax.lax.axis_index(AXIS)
             y0_base = (di * rows_local).astype(jnp.int32)
             fb = jnp.zeros((rows_pad, width, 3), real)
+            works = []
             for b in range(n_bands):
-                for c in range(n_chunks):
-                    out = _render_band(
-                        compiled, cam, seed,
-                        y0_base + jnp.int32(b * band_rows),
-                        s_base + jnp.int32(c * spp_chunk),
-                        width=width, height=height, band_rows=band_rows,
-                        spp_chunk=spp_chunk, spp=spp, max_depth=max_depth,
-                        sampler=sampler, has_dof=has_dof,
-                        sample_limit=s_cap, rr=rr, clamp=clamp,
-                    )
-                    fb = fb.at[b * band_rows : (b + 1) * band_rows].add(out)
-            return fb[:rows_local]
+                out = _render_band_regen(
+                    compiled, seed,
+                    y0_base + jnp.int32(b * band_rows), s_base,
+                    width=width, height=height, band_rows=band_rows,
+                    s_par=s_par, spp=spp, sample_limit=s_cap,
+                    max_depth=max_depth, sampler=sampler,
+                    has_dof=has_dof, cam_consts=cam_c, rr=rr, clamp=clamp,
+                    want_work=sortable,
+                )
+                if sortable:
+                    out, wk = out
+                    works.append(wk)
+                fb = fb.at[b * band_rows : (b + 1) * band_rows].add(out)
+            fbd = fb[:rows_local]
+            if sortable:
+                return fbd, jnp.stack(works)[None]
+            return fbd
 
-        fn = _memo_sharded(compiled, cfg_key, lambda: jax.jit(
-            jax.shard_map(
-                worker, mesh=mesh, in_specs=(P(),) * 5,
-                out_specs=P(AXIS), check_vma=False,
+        fn = _memo_sharded(
+            compiled, cfg_key + ("work" if sortable else "plain",),
+            lambda: jax.jit(
+                jax.shard_map(
+                    worker, mesh=mesh, in_specs=(P(),) * 4,
+                    out_specs=(P(AXIS), P(AXIS)) if sortable else P(AXIS),
+                    check_vma=False,
+                )
             )
-        ))
-        return _norm(
-            fn(compiled, cam, seed_arr, s_base_arr, s_cap_arr)[:height]
         )
+        if not sortable:
+            return _norm(
+                fn(compiled, seed_arr, s_base_arr, s_cap_arr)[:height]
+            )
+        fb, works = fn(compiled, seed_arr, s_base_arr, s_cap_arr)
+        works = np.asarray(works)  # (n_dev, n_bands, n_lanes)
+        n_items = _plan_items(band_rows, width, LANE_BLOCK)
+        plans = []
+        for b in range(n_bands):
+            per_dev = []
+            for d in range(n_dev):
+                y0 = d * rows_local + b * band_rows
+                per_dev.append(_sorted_plan(
+                    works[d, b], width, band_rows,
+                    min(band_rows, height - y0), y0, n_items,
+                ))
+            plans.append(tuple(
+                jnp.stack([p[i] for p in per_dev]) for i in range(3)
+            ))
+        plan_entry["plans"] = plans
+        return _norm(fb[:height])
 
     raise ValueError(f"unknown shard mode: {shard}")
 
@@ -555,9 +459,7 @@ def render_batch_sharded(
     device mesh — the sharded twin of render/progressive.py:_render_batch,
     so progressive checkpoint/resume composes with ``--shard``.
 
-    A thin delegation to :func:`render_sharded` (round-5 review fix: the
-    first version duplicated all four workers and baked ``sample0`` into
-    the compiled closure, recompiling every batch).  ``sample0`` is a
+    A thin delegation to :func:`render_sharded`.  ``sample0`` is a
     dynamic input there, so all of a progressive render's full batches
     share ONE compiled pipeline (the final partial batch, if any, adds a
     second), and sortable scenes get the cost-sorted steady state.
@@ -588,8 +490,7 @@ def render_adaptive_sharded(
     pilot_spp: int = 0,
     return_stats: bool = False,
 ):
-    """Variance-guided adaptive sampling across a device mesh (lifts the
-    round-4 ``--adaptive``/``--shard`` incompatibility).
+    """Variance-guided adaptive sampling across a device mesh.
 
     ``shard='samples'``: the pilot halves are rendered as disjoint sample
     slices and ``psum``'d, so every device sees the SAME global noise map
@@ -610,8 +511,6 @@ def render_adaptive_sharded(
 
     Returns the (H, W, 3) f32 framebuffer (plus a stats dict with the
     per-pixel sample map when ``return_stats``)."""
-    import logging
-
     from ..render.adaptive import _plan_pipeline, pick_pilot
     from ..render.adaptive_device import (
         allocate_extra_dev,
@@ -621,7 +520,6 @@ def render_adaptive_sharded(
         variance_weights_dev,
     )
 
-    log = logging.getLogger(__name__)
     if mesh is None:
         from .mesh import make_mesh
 
@@ -648,13 +546,6 @@ def render_adaptive_sharded(
             }
         return fb
 
-    if not _use_production_path(scene):
-        log.warning(
-            "adaptive sampling needs the Pallas regen backend; rendering "
-            "uniformly at %d spp", spp,
-        )
-        return _uniform(spp)
-
     pilot = pilot_spp or pick_pilot(spp)
     pilot = max(2, min(pilot, spp))
     pilot += pilot & 1
@@ -672,14 +563,8 @@ def render_adaptive_sharded(
     half = pilot // 2
 
     n_dev = mesh.devices.size
-    base_compiled = scene.compiled  # stable memo key (with_rows copies)
-    compiled = base_compiled
-    # Narrow tiles for the whole adaptive pipeline — same measured choice
-    # as the single-device path (short per-lane sample windows are
-    # divergence/latency-dominated; see render/adaptive.py).
-    if not os.environ.get("ZWRT_ROWS"):
-        compiled = compiled.with_rows(8)
-    sort_lanes = not (compiled.has_sph_tree or compiled.has_quad_tree)
+    compiled = scene.compiled
+    sort_lanes = not compiled.has_bvh
     has_dof = scene.camera.has_depth_of_field
     cam_c = camera_consts(scene.camera, width, height)
     seed_arr = jnp.uint32(seed)
@@ -701,7 +586,7 @@ def render_adaptive_sharded(
             tile_order_lane_index(width, band_rows, tile).reshape(-1),
             kind="stable",
         ).astype(np.int32)
-        m_lanes = plan_lane_budget(band_rows * width, compiled.rows * 128)
+        m_lanes = plan_lane_budget(band_rows * width, LANE_BLOCK)
         qa = _cdiv(half, n_dev)  # pilot-half sample slice per device
 
         def worker(compiled, seed, order):
@@ -772,7 +657,7 @@ def render_adaptive_sharded(
                 cnt = cnt.at[b * band_rows : (b + 1) * band_rows].set(n_pix)
             return fb[:height], cnt[:height]
 
-        fn = _memo_sharded(base_compiled, cfg_key, lambda: jax.jit(
+        fn = _memo_sharded(compiled, cfg_key, lambda: jax.jit(
             jax.shard_map(
                 worker, mesh=mesh, in_specs=(P(), P(), P()),
                 out_specs=(P(), P()), check_vma=False,
@@ -796,7 +681,7 @@ def render_adaptive_sharded(
         tile_order_lane_index(width, band_rows, tile).reshape(-1),
         kind="stable",
     ).astype(np.int32)
-    m_lanes = plan_lane_budget(band_rows * width, compiled.rows * 128)
+    m_lanes = plan_lane_budget(band_rows * width, LANE_BLOCK)
 
     def worker(compiled, seed, order):
         di = jax.lax.axis_index(AXIS)
@@ -855,7 +740,7 @@ def render_adaptive_sharded(
             cnt = cnt.at[b * band_rows : (b + 1) * band_rows].set(n_pix)
         return fb[:rows_local], cnt[:rows_local]
 
-    fn = _memo_sharded(base_compiled, cfg_key, lambda: jax.jit(
+    fn = _memo_sharded(compiled, cfg_key, lambda: jax.jit(
         jax.shard_map(
             worker, mesh=mesh, in_specs=(P(), P(), P()),
             out_specs=(P(AXIS), P(AXIS)), check_vma=False,

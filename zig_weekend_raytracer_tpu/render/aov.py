@@ -4,7 +4,7 @@ A production framework surface the reference lacks: denoisers (OIDN-class)
 and compositing pipelines want the first-hit feature buffers alongside the
 beauty image.  One bounce of the existing machinery produces them — camera
 rays (render/camera.py:generate_rays, jitter/DoF/motion-time included) ->
-closest_hit (the same XLA/Pallas tracer the integrator uses) ->
+closest_hit (the same tracer the integrator uses) ->
 shade_attrs + texture_rgb (the denormalized shade record).  No new kernel:
 a single-bounce wavefront is trace-dominated and XLA fuses the shading
 tail.
@@ -112,16 +112,6 @@ def render_aovs(
     cam = camera_params(scene.camera, width, height)
     band_rows = max(1, min(height, max_rays_per_chunk // (width * spp)))
     n_bands = -(-height // band_rows)
-    # Narrow tiles: the AOV prepass is a short (spp~4) first-hit render,
-    # latency-dominated — measured 0.229 s (rows 8) vs 0.371 s (rows 64)
-    # on cornell 400x400 (CompiledScene.with_rows).  An explicit
-    # ZWRT_ROWS sweep override wins, as in render_adaptive.
-    import os as _os
-
-    sc = scene.compiled
-    if not _os.environ.get("ZWRT_ROWS"):
-        sc = sc.with_rows(8)
-
     albedo = np.zeros((height, width, 3), np.float32)
     normal = np.zeros((height, width, 3), np.float32)
     depth = np.zeros((height, width), np.float32)
@@ -130,7 +120,7 @@ def render_aovs(
         y0 = b * band_rows
         rows = min(band_rows, height - y0)
         alb, nrm, aux = _aov_band(
-            sc, cam, jnp.uint32(seed), jnp.int32(y0),
+            scene.compiled, cam, jnp.uint32(seed), jnp.int32(y0),
             width=width, height=height, band_rows=band_rows, spp=spp,
             sampler=sampler, has_dof=scene.camera.has_depth_of_field,
         )

@@ -58,9 +58,9 @@ def camera_params(camera: Camera, width: int, height: int) -> CameraParams:
 
 
 def camera_consts(camera: Camera, width: int, height: int):
-    """CameraParams as a STATIC nested tuple of floats — the form the Pallas
-    regeneration kernel bakes in as compile-time constants (and a valid jit
-    static argument)."""
+    """CameraParams as a STATIC nested tuple of floats — the form the
+    regenerating wavefront bakes in as compile-time constants (and a valid
+    jit static argument)."""
     pixel00, du, dv = camera.viewport(width, height)
     dd_u, dd_v = camera.defocus_disk()
     t3 = lambda a: tuple(float(v) for v in np.asarray(a))
@@ -70,8 +70,8 @@ def camera_consts(camera: Camera, width: int, height: int):
 
 
 def camera_params_from_consts(consts) -> CameraParams:
-    """Static float tuple -> CameraParams of numpy scalars (broadcast-safe
-    inside kernels: no device constants are created)."""
+    """Static float tuple -> CameraParams of numpy scalars (no device
+    constants are created)."""
     s3 = lambda t: V3(np.float32(t[0]), np.float32(t[1]), np.float32(t[2]))
     return CameraParams(*(s3(t) for t in consts))
 

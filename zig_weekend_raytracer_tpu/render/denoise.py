@@ -25,16 +25,16 @@ Defaults: iterations=3, sigma_l="auto" — the luminance stop scales with
 the framebuffer's MEASURED noise level (estimate_noise_sigma x the
 calibrated _SIGMA_L_PER_NOISE), so noisy low-spp renders smooth hard
 while clean renders keep shading detail.  At the 8-spp cornell anchor
-auto lands at ~1.0, the round-3 measured best (MSE 0.0268 -> ~0.0145,
--46%); on clean geometric scenes it backs off (the round-3 fixed 1.0
-measured MSE ratio 1.91 vs uniform on balls@32 — worse than no filter).
+auto lands at ~1.0, the measured best there (MSE 0.0268 -> ~0.0145,
+-46%); on clean geometric scenes it backs off (a fixed 1.0 measured MSE
+ratio 1.91 vs uniform on balls@32 — worse than no filter).
 SVGF-style variance modulation of the luminance stop (local 3x3 sigma of
 demodulated luminance) was prototyped and measured WORSE on this
 renderer's low-spp output (best 0.0165 vs 0.0154 fixed) — the spatial
 variance estimate is itself too noisy at 8 spp; the fixed stop stays.
 
-TPU mapping: the filter is 25 shifted multiply-adds per iteration over
-(H, W) arrays — pure VPU elementwise work XLA fuses well; no gathers, no
+Device mapping: the filter is 25 shifted multiply-adds per iteration over
+(H, W) arrays — elementwise work XLA fuses well; no gathers, no
 data-dependent shapes.  Everything runs under jit.
 """
 
@@ -54,12 +54,11 @@ _EPS = 1e-4
 
 # sigma_l="auto" calibration: sigma_l = _SIGMA_L_PER_NOISE * estimated
 # noise sigma (estimate_noise_sigma below).  Measured on 32x32 tiles vs
-# 512-spp references (MSE ratio vs uniform, lower = better; raw sweep in
-# BASELINE.md round 4):
+# 512-spp references (MSE ratio vs uniform, lower = better; image quality,
+# the same on any backend):
 #   cornell@8  (est 0.145): fixed-1.0 best 0.542; k=6 0.559, k=7 0.559-65, k=9 0.565
 #   balls@8    (est 0.009): fixed-1.0 0.947;      k=6 0.923, k=7 0.906, k=9 0.882
-#   balls@32   (est 0.008): fixed-1.0 1.910 (WORSE than no filter — the
-#                           round-3 default's production regression);
+#   balls@32   (est 0.008): fixed-1.0 1.910 (WORSE than no filter);
 #                           k=6 0.941, k=7 0.938, k=9 0.947
 # k = 7 is within 4% of each config's own optimum and never regresses.
 _SIGMA_L_PER_NOISE = 7.0
@@ -238,10 +237,9 @@ def denoise(color, aovs: dict, *, iterations: int = 3,
     ``sigma_l`` luminance edge stop (bigger = smoother lighting) — the
     default ``"auto"`` scales it with the framebuffer's MEASURED noise
     level (estimate_noise_sigma), so a clean 32-spp render keeps its
-    shading detail while a noisy 8-spp render smooths hard.  Round-3's
-    fixed 1.0 (tuned on 8-spp cornell) over-smoothed geometry-dense
-    scenes whose noise was already low: balls@32 measured MSE ratio 2.18
-    vs uniform — the round-4 regression this default fixes;
+    shading detail while a noisy 8-spp render smooths hard.  A fixed 1.0
+    (tuned on 8-spp cornell) over-smoothed geometry-dense scenes whose
+    noise was already low: balls@32 measured MSE ratio 2.18 vs uniform;
     ``sigma_z`` depth edge stop per dilation step; ``sigma_n`` normal
     edge-stop exponent (bigger = stricter geometry edges)."""
     if iterations <= 0:

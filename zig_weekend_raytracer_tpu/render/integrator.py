@@ -1,14 +1,16 @@
 """The wavefront integrator: iterative, batched, branchless, SoA.
 
-This is the TPU-native re-design of the reference's recursive Monte-Carlo
-estimator ``rayColor`` (src/render.zig:188-289).  The recursion (two
-self-calls: specular bypass :245 and PDF-weighted scatter :280) becomes a
-``lax.fori_loop`` over bounce depth carrying SoA path state
+This re-designs the reference's recursive Monte-Carlo estimator
+``rayColor`` (src/render.zig:188-289) for a data-parallel device.  The
+recursion (two self-calls: specular bypass :245 and PDF-weighted scatter
+:280) becomes a ``lax.while_loop`` over bounces carrying SoA path state
 (origin/direction/throughput/radiance/alive); the estimator identity
 
     color = emission + attenuation * scatter_pdf / sample_pdf * L(scattered)
 
-unrolls into a running throughput product.
+unrolls into a running throughput product.  ``bounce_step`` is one bounce;
+``trace_paths`` (per-bounce reference) and ``trace_paths_regen``
+(regenerating wavefront, the production path) are two loops around it.
 
 Semantics matched bounce-for-bounce:
   * depth cutoff -> black                              (:199)
@@ -33,7 +35,6 @@ NaNs (which the writer scrubs to black anyway, src/writer/writer.zig:83-94).
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import jax
@@ -53,13 +54,9 @@ from ..scene import (
     MAT_METAL,
     CompiledScene,
 )
-from ..textures import (
-    atlas_lookup,
-    atlas_lookup_flat,
-    checker_parity,
-    texture_value,
-)
+from ..textures import atlas_lookup, checker_parity, texture_value
 from ..utils.profiler import named_zone
+from .camera import camera_params_from_consts, generate_rays
 from .pdfs import light_pdf_value, sample_light_direction
 
 # hashrng stream-site layout: camera uses sites 0..3 (see camera.py);
@@ -68,7 +65,7 @@ from .pdfs import light_pdf_value, sample_light_direction
 _BOUNCE_BASE = 8
 _SITES_PER_BOUNCE = 4
 
-# Russian-roulette survival floor (shared with the kernel twin)
+# Russian-roulette survival floor
 RR_P_MIN = hashrng.RR_P_MIN
 
 
@@ -102,326 +99,60 @@ class PathState(NamedTuple):
     ray_id: jnp.ndarray      # (N,) u32 RNG content address (travels with ray)
 
 
-class RegenState(NamedTuple):
-    origin: V3
-    direction: V3
-    time: jnp.ndarray
-    throughput: V3
-    radiance: V3
-    alive: jnp.ndarray
-    ray_id: jnp.ndarray
-    sample: jnp.ndarray   # (N,) i32 current sample index per slot
-    bounce: jnp.ndarray   # (N,) i32 per-path bounce counter
-    work: jnp.ndarray     # (N,) i32 traced-call counter (None-like zeros
-                          # unless cost measurement is requested)
-
-
-def trace_paths_regen(
+def bounce_step(
     scene: CompiledScene,
-    camera_consts,          # static float tuple (render.camera.camera_consts)
-    seed,                   # u32 scalar
-    px: jnp.ndarray,        # (N,) i32 per-slot pixel column (BLK multiple)
-    py: jnp.ndarray,        # (N,) i32 per-slot pixel row
-    first_sample: jnp.ndarray,  # (N,) i32 per-slot first sample index
-    sample_limit: jnp.ndarray,  # (N,) i32 per-slot first sample NOT rendered
-    *,
-    sampler,
-    width: int,
-    height: int,
-    spp: int,
-    stride: int,
-    max_depth: int,
-    has_dof: bool,
-    terminate_zero_throughput: bool = True,
-    want_work: bool = False,
-    rr_start: int = 0,
-    clamp: float = 0.0,
-):
-    """Regenerating wavefront: each slot owns one pixel and sequentially
-    path-traces samples ``first_sample, first_sample + stride, ...`` below
-    its ``sample_limit``; a lane whose path terminates respawns its next
-    sample IN the bounce kernel, so lane utilization stays ~100% instead of
-    decaying with the alive fraction (the production form of the wavefront
-    design; the reference instead gives each CPU thread a pixel-block queue,
-    src/render.zig:55-73).  Returns the per-slot radiance SUM over its
-    samples (plus the per-slot traced-call count when ``want_work`` — the
-    profile-guided balancer's cost signal); the content-addressed RNG keeps
-    results bit-identical to the non-regenerating integrator.
-
-    Dispatch: scenes without image textures run as ONE whole-render
-    megakernel (ops/pallas_bounce.py:render_fused — each tile loops over
-    bounces in-kernel, no global synchronization); image scenes run the
-    per-bounce kernel under a ``lax.while_loop`` with the XLA atlas fix-up
-    between bounces."""
-    from ..ops.pallas_bounce import (
-        bounce_pallas_regen,
-        render_fused,
-        supports_fused_render,
-    )
-    BLK = scene.rows * 128  # per-scene wavefront block (pick_rows)
-
-    if supports_fused_render(scene):
-        return render_fused(
-            scene, px, py, first_sample, sample_limit, seed, T_MIN,
-            camera_consts=camera_consts, sampler=sampler,
-            width=width, height=height, spp=spp, stride=stride,
-            max_depth=max_depth, has_dof=has_dof,
-            terminate_zero=terminate_zero_throughput,
-            want_work=want_work,
-            rr_start=rr_start,
-            clamp=clamp,
-        )
-
-    n = px.shape[0]
-    state = RegenState(
-        origin=V3.zeros((n,), real),
-        direction=V3.full((n,), 0.0, 0.0, 1.0, real),
-        time=jnp.zeros((n,), real),
-        throughput=V3.full((n,), 1.0, 1.0, 1.0, real),
-        radiance=V3.zeros((n,), real),
-        alive=jnp.zeros((n,), bool),
-        ray_id=jnp.zeros((n,), jnp.uint32),
-        sample=first_sample - stride,  # pre-first: bounce 0 respawns it
-        bounce=jnp.zeros((n,), jnp.int32),
-        work=jnp.zeros((n,), jnp.int32),
-    )
-
-    def cond(st: RegenState):
-        return jnp.any(st.alive | (st.sample + stride < sample_limit))
-
-    def body(st: RegenState):
-        origin, direction, throughput, radiance, alive, time, sample, \
-            bounce, ray_id, work, to, chain = bounce_pallas_regen(
-                scene, st.origin, st.direction, st.time, st.ray_id,
-                st.throughput, st.radiance, st.alive,
-                px, py, st.sample, st.bounce, sample_limit,
-                seed, T_MIN,
-                camera_consts=camera_consts, sampler=sampler,
-                width=width, height=height, spp=spp, stride=stride,
-                max_depth=max_depth, has_dof=has_dof,
-                terminate_zero=terminate_zero_throughput,
-                work=st.work if want_work else None,
-                rr_start=rr_start,
-                clamp=clamp,
-            )
-        if scene.has_image_textures:
-            # Resolve the per-lane pending-atlas-event chain: walk the K
-            # buffered slots in order, folding each texture color into the
-            # running factor (-2 is the RESET sentinel a respawn records —
-            # the new path's contributions take factor 1), and scale each
-            # radiance segment by the factor at its position.  Exact: a
-            # segment holds exactly the contributions between two chain
-            # boundaries (ops/pallas_bounce.py regen loop).  Events arrive
-            # PACKED (round 4): one i32 flat atlas texel index per slot,
-            # computed in-kernel (textures.atlas_flat_index), so each slot
-            # gathers 4 full-wavefront arrays (index + segment rgb) instead
-            # of the 6 the (u, v, img) triple needed.
-            nn = to.shape[0]
-            one = V3.full((nn,), 1.0, 1.0, 1.0, real)
-            if chain is not None:
-                segs, buft = chain
-                # Driver-side COMPACTION: measured NEGATIVE in round 3
-                # against the UNPACKED chain (rtw_final 1.357 s -> 1.869 s:
-                # compacting to event lanes must gather ~6K chain arrays
-                # against the 12 nn it saves), default OFF
-                # (ZWRT_CHAIN_CAP_DIV > 0 enables for A/B).  The packed
-                # chain shifts the ratio (~4K+1 arrays to compact vs 4K+1
-                # saved) — re-measure on hardware before changing the
-                # default.
-                has_ev = (buft[0] != -1) | (to >= 0)
-                cnt = jnp.sum(has_ev.astype(jnp.int32))
-                div = int(os.environ.get("ZWRT_CHAIN_CAP_DIV", "0"))
-                cap = max(BLK, nn // div) if div > 0 else 0
-
-                def _fold(bt_l, sg_l, to_l):
-                    """Walk the K slots in order over arrays of size m;
-                    returns (factor, radiance delta)."""
-                    m = to_l.shape[0]
-                    onem = V3.full((m,), 1.0, 1.0, 1.0, real)
-                    factor = onem
-                    rad = V3.zeros((m,), real)
-                    for k in range(len(bt_l)):
-                        bt = bt_l[k]
-
-                        # slots empty across the whole wavefront (the
-                        # common case for high k once the render tail
-                        # thins) skip their atlas gather entirely
-                        def _apply(args, k=k, bt=bt):
-                            factor, rad = args
-                            col = atlas_lookup_flat(
-                                scene, jnp.maximum(bt, 0)
-                            )
-                            factor = V3.where(
-                                bt == -2, onem,
-                                V3.where(bt >= 0, factor * col, factor),
-                            )
-                            return factor, rad + sg_l[k] * factor
-
-                        factor, rad = jax.lax.cond(
-                            jnp.any(bt != -1), _apply, lambda a: a,
-                            (factor, rad),
-                        )
-                    img_rgb = atlas_lookup_flat(
-                        scene, jnp.maximum(to_l, 0)
-                    )
-                    factor = V3.where(to_l >= 0, factor * img_rgb, factor)
-                    return factor, rad
-
-                def _compact_branch(args):
-                    throughput, radiance = args
-                    idx = jnp.nonzero(has_ev, size=cap, fill_value=nn)[0]
-                    fac_c, rad_c = _fold(
-                        [b[idx] for b in buft],
-                        [V3(s.x[idx], s.y[idx], s.z[idx]) for s in segs],
-                        to[idx],
-                    )
-                    # OOB idx rows are dropped by the scatters
-                    radiance = V3(
-                        radiance.x.at[idx].add(rad_c.x),
-                        radiance.y.at[idx].add(rad_c.y),
-                        radiance.z.at[idx].add(rad_c.z),
-                    )
-                    throughput = V3(
-                        throughput.x.at[idx].mul(fac_c.x),
-                        throughput.y.at[idx].mul(fac_c.y),
-                        throughput.z.at[idx].mul(fac_c.z),
-                    )
-                    return throughput, radiance
-
-                def _full_branch(args):
-                    throughput, radiance = args
-                    factor, rad = _fold(buft, segs, to)
-                    return throughput * factor, radiance + rad
-
-                if cap:
-                    throughput, radiance = jax.lax.cond(
-                        cnt <= cap, _compact_branch, _full_branch,
-                        (throughput, radiance),
-                    )
-                else:
-                    throughput, radiance = _full_branch(
-                        (throughput, radiance)
-                    )
-            else:
-                # K = 0 (brute-trace image scenes, e.g. shrek): exit on
-                # first event — events are dense across the wavefront, so
-                # compaction would not pay; apply the packed event directly.
-                img_rgb = atlas_lookup_flat(scene, jnp.maximum(to, 0))
-                throughput = throughput * V3.where(
-                    to >= 0, img_rgb, one
-                )
-        return RegenState(
-            origin=origin, direction=direction, time=time,
-            throughput=throughput, radiance=radiance, alive=alive,
-            ray_id=ray_id, sample=sample, bounce=bounce,
-            work=work if want_work else st.work,
-        )
-
-    final = jax.lax.while_loop(cond, body, state)
-    if want_work:
-        return final.radiance, final.work
-    return final.radiance
-
-
-def trace_paths(
-    scene: CompiledScene,
-    origin: V3,
-    direction: V3,
-    time: jnp.ndarray,
     seed,                    # u32 scalar
-    ray_id: jnp.ndarray,     # (N,) u32 global ray ids
-    max_depth: int,
+    depth,                   # i32 scalar, or (N,) per-lane bounce index
+    st: PathState,
+    *,
     terminate_zero_throughput: bool = True,
     rr_start: int = 0,
     clamp: float = 0.0,
-) -> V3:
-    """Estimate radiance for a wavefront of rays.  Returns V3 of (N,).
+) -> PathState:
+    """One bounce of the estimator for every lane of ``st``: closest hit,
+    emission/background, material scatter.  Dead lanes keep their state.
+
+    ``depth`` is the bounce index each lane's path is at.  ``trace_paths``
+    passes one scalar (the whole wavefront bounces together);
+    ``trace_paths_regen`` passes each lane's own counter.  It addresses the
+    RNG sites and gates the clamp (depth >= 1) and Russian roulette
+    (depth >= rr_start), so a path draws the same numbers under both.
 
     ``rr_start`` > 0 enables Russian roulette from that bounce index: a
     path entering bounce d >= rr_start continues with probability
     p = clamp(max(throughput), RR_P_MIN, 1) and survivors scale throughput
     by 1/p — an unbiased estimator-preserving tail cut (a PBRT-standard
     extension; the reference has no RR, so the default 0 keeps reference
-    semantics and all goldens).  Gated OFF on image-texture scenes: the
-    kernel defers atlas factors out of its live throughput, so an adaptive
-    p would diverge between the Pallas and XLA formulations there.
+    semantics and all goldens).  Gated OFF on image-texture scenes.
 
     ``clamp`` > 0 enables the Cycles-style indirect clamp: any radiance
     contribution landed at bounce d >= 1 is luminance-scaled down to at
     most ``clamp`` — biased firefly suppression (direct light and the
-    d = 0 background stay exact).  Same image-scene gate as RR.
-
-    Stream compaction (permuting live paths to the wavefront front) was
-    prototyped in round 1 and REMOVED: XLA scatter on TPU measured far
-    slower than the dead-ray work it saves, and the Pallas kernels' scalar
-    tile-skip already retires spatially coherent dead tiles for free."""
-    n = origin.shape[0]
-    state = PathState(
-        origin=origin,
-        direction=direction,
-        time=time,
-        throughput=V3.full((n,), 1.0, 1.0, 1.0, real),
-        radiance=V3.zeros((n,), real),
-        alive=jnp.ones((n,), bool),
-        ray_id=ray_id,
-    )
-
-    from ..ops.trace import _use_pallas_backend
-
-    use_bounce_kernel = _use_pallas_backend()
-    if use_bounce_kernel:
-        from ..ops.pallas_bounce import bounce_pallas, supports_bounce_kernel
-
-        use_bounce_kernel = supports_bounce_kernel(scene)
-
+    d = 0 background stay exact).  Same image-scene gate as RR."""
+    n = st.origin.shape[0]
     rr_on = rr_start > 0 and not scene.has_image_textures
     clamp_on = clamp > 0 and not scene.has_image_textures
+    ray_id = st.ray_id
+    # Per-bounce decorrelation: the depth folds into the stream index —
+    # every draw is a pure function of (seed, ray_id, site).
+    site = _BOUNCE_BASE + depth * _SITES_PER_BOUNCE
+    u0, u1, u2, u3 = hashrng.uniform4(seed, ray_id, site)
+    if scene.has_lights:
+        u4, u5, u6, _ = hashrng.uniform4(seed, ray_id, site + 1)
+    if scene.needs_gauss:
+        # feeds only isotropic/fuzzy-metal; content-addressed draws make
+        # skipping it bitwise-safe for scenes with neither
+        gauss = hashrng.gauss3(seed, ray_id, site + 2)
+    if rr_on:
+        u_rr = hashrng.uniform1(seed, ray_id, site + 3)
 
-    def bounce_kernel(depth, st: PathState) -> PathState:
-        """Fused Pallas bounce (ops/pallas_bounce.py): trace + shade +
-        scatter run in ONE kernel; image textures are multiplied in
-        afterwards (the only non-fused piece)."""
-        origin, direction, throughput, radiance, alive, (u, v, io) = (
-            bounce_pallas(
-                scene, st.origin, st.direction, st.time, st.ray_id,
-                st.throughput, st.radiance, st.alive,
-                seed, depth, T_MIN,
-                terminate_zero=terminate_zero_throughput,
-                rr_start=rr_start,
-                clamp=clamp,
-            )
+    with jax.named_scope("closest_hit"), named_zone("rayColor"):
+        hit = closest_hit(
+            scene, st.origin, st.direction, st.time, T_MIN, INF,
+            active=st.alive,
         )
-        if scene.has_image_textures:
-            img_rgb = atlas_lookup(scene, jnp.maximum(io, 0), u, v)
-            throughput = V3.where(io >= 0, throughput * img_rgb, throughput)
-        return PathState(
-            origin=origin, direction=direction, time=st.time,
-            throughput=throughput, radiance=radiance, alive=alive,
-            ray_id=st.ray_id,
-        )
-
-    def bounce(depth, st: PathState) -> PathState:
-        if use_bounce_kernel:
-            return bounce_kernel(depth, st)
-        ray_id = st.ray_id
-        # Per-bounce decorrelation: the (traced) depth folds into the stream
-        # index — every draw is a pure function of (seed, ray_id, site).
-        site = _BOUNCE_BASE + depth * _SITES_PER_BOUNCE
-        u0, u1, u2, u3 = hashrng.uniform4(seed, ray_id, site)
-        if scene.has_lights:
-            u4, u5, u6, _ = hashrng.uniform4(seed, ray_id, site + 1)
-        if scene.needs_gauss:
-            # feeds only isotropic/fuzzy-metal; content-addressed draws make
-            # skipping it bitwise-safe for scenes with neither
-            gauss = hashrng.gauss3(seed, ray_id, site + 2)
-        if rr_on:
-            u_rr = hashrng.uniform1(seed, ray_id, site + 3)
-
-        with named_zone("rayColor"):
-            hit = closest_hit(
-                scene, st.origin, st.direction, st.time, T_MIN, INF,
-                active=st.alive,
-            )
+    # ---- shading (reference: src/render.zig:215-288) ----
+    with jax.named_scope("shade"):
         det = shade_attrs(scene, hit, st.origin, st.direction, st.time)
 
         hit_any = hit.kind >= 0
@@ -429,7 +160,6 @@ def trace_paths(
         missed = st.alive & ~hit_any
 
         if clamp_on:
-            # mirrors ops/pallas_bounce.py:_bounce_core _clamp_contrib
             def _clamp_contrib(c: V3) -> V3:
                 lum = LUM_R * c.x + LUM_G * c.y + LUM_B * c.z
                 s = jnp.where(
@@ -547,10 +277,10 @@ def trace_paths(
             survives = survives & nonzero
         if rr_on:
             # Russian roulette on the continuation: p from the INCOMING
-            # throughput (identical in the kernel twin), applied from
-            # bounce rr_start on.  This bounce's radiance contributions
-            # (emission/background, weighted by incoming throughput) are
-            # untouched; survivors carry the 1/p weight forward.
+            # throughput, applied from bounce rr_start on.  This bounce's
+            # radiance contributions (emission/background, weighted by
+            # incoming throughput) are untouched; survivors carry the 1/p
+            # weight forward.
             p_rr = jnp.clip(
                 jnp.maximum(
                     st.throughput.x,
@@ -572,6 +302,37 @@ def trace_paths(
             ray_id=st.ray_id,
         )
 
+
+def trace_paths(
+    scene: CompiledScene,
+    origin: V3,
+    direction: V3,
+    time: jnp.ndarray,
+    seed,                    # u32 scalar
+    ray_id: jnp.ndarray,     # (N,) u32 global ray ids
+    max_depth: int,
+    terminate_zero_throughput: bool = True,
+    rr_start: int = 0,
+    clamp: float = 0.0,
+) -> V3:
+    """Per-bounce reference integrator: the whole wavefront of camera rays
+    bounces together, one ``bounce_step`` per loop iteration, until every
+    path has ended or ``max_depth`` bounces are done.  Returns V3 of (N,).
+    Options as in ``bounce_step``.
+
+    The production path is ``trace_paths_regen``; this form stays as the
+    plain reference that tests compare it against."""
+    n = origin.shape[0]
+    state = PathState(
+        origin=origin,
+        direction=direction,
+        time=time,
+        throughput=V3.full((n,), 1.0, 1.0, 1.0, real),
+        radiance=V3.zeros((n,), real),
+        alive=jnp.ones((n,), bool),
+        ray_id=ray_id,
+    )
+
     # while_loop instead of fori_loop: the wavefront exits as soon as every
     # path has terminated (miss/emissive/absorption), which is typically far
     # before max_depth (the reference's recursion simply unwinds,
@@ -582,7 +343,136 @@ def trace_paths(
 
     def body(carry):
         depth, st = carry
-        return depth + 1, bounce(depth, st)
+        return depth + 1, bounce_step(
+            scene, seed, depth, st,
+            terminate_zero_throughput=terminate_zero_throughput,
+            rr_start=rr_start, clamp=clamp,
+        )
 
     _, final = jax.lax.while_loop(cond, body, (jnp.int32(0), state))
     return final.radiance
+
+
+class RegenState(NamedTuple):
+    path: PathState
+    sample: jnp.ndarray   # (N,) i32 current sample index per lane
+    bounce: jnp.ndarray   # (N,) i32 bounce index of the lane's path
+    work: jnp.ndarray     # (N,) i32 bounces traced by the lane
+
+
+def _respawn(
+    cam, seed, px, py, limit, st: RegenState, *,
+    sampler, width, height, spp, stride, has_dof,
+) -> RegenState:
+    """Path regeneration: dead lanes whose next sample is below their
+    ``limit`` take it and start a fresh camera ray.  The ray id (and so
+    every random draw) depends only on (sample, pixel), never on the lane."""
+    p = st.path
+    next_sample = st.sample + stride
+    respawn = ~p.alive & (next_sample < limit)
+    sample = jnp.where(respawn, next_sample, st.sample)
+    new_rid = (
+        sample.astype(jnp.uint32) * jnp.uint32(height)
+        + py.astype(jnp.uint32)
+    ) * jnp.uint32(width) + px.astype(jnp.uint32)
+    o_new, d_new, t_new = generate_rays(
+        cam, has_dof, sampler, seed, new_rid, px, py, sample,
+        spp, width, height,
+    )
+    shape = px.shape
+    path = PathState(
+        origin=V3.where(respawn, o_new, p.origin),
+        direction=V3.where(respawn, d_new, p.direction),
+        time=jnp.where(respawn, t_new, p.time),
+        throughput=V3.where(
+            respawn, V3.full(shape, 1.0, 1.0, 1.0, real), p.throughput
+        ),
+        radiance=p.radiance,
+        alive=p.alive | respawn,
+        ray_id=jnp.where(respawn, new_rid, p.ray_id),
+    )
+    return RegenState(
+        path=path, sample=sample,
+        bounce=jnp.where(respawn, 0, st.bounce), work=st.work,
+    )
+
+
+def trace_paths_regen(
+    scene: CompiledScene,
+    camera_consts,          # static float tuple (render.camera.camera_consts)
+    seed,                   # u32 scalar
+    px: jnp.ndarray,        # (N,) i32 per-lane pixel column
+    py: jnp.ndarray,        # (N,) i32 per-lane pixel row
+    first_sample: jnp.ndarray,  # (N,) i32 per-lane first sample index
+    sample_limit: jnp.ndarray,  # (N,) i32 per-lane first sample NOT rendered
+    *,
+    sampler,
+    width: int,
+    height: int,
+    spp: int,
+    stride: int,
+    max_depth: int,
+    has_dof: bool,
+    terminate_zero_throughput: bool = True,
+    want_work: bool = False,
+    rr_start: int = 0,
+    clamp: float = 0.0,
+):
+    """Regenerating wavefront: each lane owns one pixel and path-traces its
+    samples ``first_sample, first_sample + stride, ...`` below its
+    ``sample_limit`` one after another.  Each loop iteration first respawns
+    the lanes whose path has ended, then runs one ``bounce_step`` with each
+    lane's own bounce index, so lanes stay busy instead of idling once
+    their path ends (the reference instead gives each CPU thread a
+    pixel-block queue, src/render.zig:55-73).
+
+    Returns the per-lane radiance SUM over its samples, plus the per-lane
+    count of bounces traced when ``want_work`` (the cost signal of the
+    sorted and balanced drivers).  The content-addressed RNG makes each
+    path's estimate equal to the one ``trace_paths`` computes for it."""
+    n = px.shape[0]
+    cam = camera_params_from_consts(camera_consts)
+    state = RegenState(
+        path=PathState(
+            origin=V3.zeros((n,), real),
+            direction=V3.full((n,), 0.0, 0.0, 1.0, real),
+            time=jnp.zeros((n,), real),
+            throughput=V3.full((n,), 1.0, 1.0, 1.0, real),
+            radiance=V3.zeros((n,), real),
+            alive=jnp.zeros((n,), bool),
+            ray_id=jnp.zeros((n,), jnp.uint32),
+        ),
+        sample=first_sample - stride,  # pre-first: the first step respawns it
+        bounce=jnp.zeros((n,), jnp.int32),
+        work=jnp.zeros((n,), jnp.int32),
+    )
+
+    def cond(st: RegenState):
+        return jnp.any(st.path.alive | (st.sample + stride < sample_limit))
+
+    def body(st: RegenState):
+        with jax.named_scope("regenerate"):
+            st = _respawn(
+                cam, seed, px, py, sample_limit, st, sampler=sampler,
+                width=width, height=height, spp=spp, stride=stride,
+                has_dof=has_dof,
+            )
+        path = bounce_step(
+            scene, seed, st.bounce, st.path,
+            terminate_zero_throughput=terminate_zero_throughput,
+            rr_start=rr_start, clamp=clamp,
+        )
+        bounce = st.bounce + 1
+        # depth cutoff per path (reference: src/render.zig:199)
+        path = path._replace(alive=path.alive & (bounce < max_depth))
+        work = st.work
+        if want_work:
+            work = work + st.path.alive.astype(jnp.int32)
+        return RegenState(
+            path=path, sample=st.sample, bounce=bounce, work=work
+        )
+
+    final = jax.lax.while_loop(cond, body, state)
+    if want_work:
+        return final.path.radiance, final.work
+    return final.path.radiance

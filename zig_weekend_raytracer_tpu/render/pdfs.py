@@ -10,8 +10,8 @@ PDF framework (src/pdf.zig), SoA form.
     (src/entity.zig:381-386, 520-525, 646-679).
 
 The light list is STATIC scene metadata (``CompiledScene.lights``), so each
-slot compiles to exactly its own primitive kind's math — the TPU analog of
-the reference's tagged-union dispatch resolving at comptime.
+slot compiles to exactly its own primitive kind's math — the analog of the
+reference's tagged-union dispatch resolving at comptime.
 """
 
 from __future__ import annotations

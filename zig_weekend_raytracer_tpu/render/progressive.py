@@ -24,8 +24,8 @@ import numpy as np
 
 from ..dtypes import real
 from ..scene import Scene
-from .renderer import Renderer, _render_band
-from .camera import camera_params
+from .camera import camera_consts
+from .renderer import Renderer, _render_band_regen
 
 log = logging.getLogger("zwrt")
 
@@ -33,8 +33,7 @@ log = logging.getLogger("zwrt")
 def _fingerprint(scene: Scene, width, height, renderer: Renderer) -> str:
     # every Renderer knob that changes the ESTIMATOR must be here — a
     # resume under different settings would silently mix two estimators —
-    # plus every knob that changes the CHUNK DECOMPOSITION (round-5 review
-    # fix): the estimator is decomposition-independent but the f32
+    # plus every knob that changes the CHUNK DECOMPOSITION: the estimator is decomposition-independent but the f32
     # summation order is not, and the class promises bitwise resume
     return (
         f"{scene.name}:{width}x{height}:depth{renderer.max_ray_bounce_depth}"
@@ -49,7 +48,7 @@ def _fingerprint(scene: Scene, width, height, renderer: Renderer) -> str:
 class ProgressiveRenderer:
     """Renders in sample batches, checkpointing after each batch.
 
-    ``shard`` (round 5) runs each batch across a device mesh
+    ``shard`` runs each batch across a device mesh
     (parallel/render.py:render_batch_sharded, modes as in render_sharded);
     the checkpoint fingerprint then pins the mesh size and mode, because
     resuming under a different decomposition would change f32 summation
@@ -102,7 +101,7 @@ class ProgressiveRenderer:
             spp_now = min(batch_spp, total_spp - done)
             # Render exactly [done, done+spp_now) using the SAME global
             # sample indices an uninterrupted render would use.  All chunking
-            # fields carry over (including the XLA-BVH wavefront cap).
+            # fields carry over.
             sub = dataclasses.replace(
                 self.renderer, samples_per_pixel=total_spp
             )
@@ -146,67 +145,29 @@ def _render_batch(
     renderer: Renderer, scene: Scene, width, height, sample0: int, spp_now: int
 ) -> jnp.ndarray:
     """Radiance *sum* over samples [sample0, sample0+spp_now)."""
-    cam = camera_params(scene.camera, width, height)
     has_dof = scene.camera.has_depth_of_field
     seed = jnp.uint32(renderer.seed)
     total_spp = renderer.samples_per_pixel
-
-    spp_chunk, band_rows = renderer.chunk_geometry(
-        scene, width, height, spp_now
-    )
+    s_par, band_rows = renderer.regen_geometry(width, height, spp_now)
     n_bands = -(-height // band_rows)
-    n_chunks = -(-spp_now // spp_chunk)
-
-    h_pad = n_bands * band_rows
-    fb = jnp.zeros((h_pad, width, 3), real)
-
-    from ..ops.pallas_bounce import supports_bounce_kernel
-    from ..ops.trace import _use_pallas_backend
-
-    if _use_pallas_backend() and supports_bounce_kernel(scene.compiled):
-        from .camera import camera_consts
-        from .renderer import _render_band_regen
-
-        s_par, band_rows_r = renderer.regen_geometry(
-            width, height, spp_now,
-            image_scene=scene.compiled.has_image_textures,
-        )
-        n_bands_r = -(-height // band_rows_r)
-        fb = jnp.zeros((n_bands_r * band_rows_r, width, 3), real)
-        cam_c = camera_consts(scene.camera, width, height)
-        for b in range(n_bands_r):
-            out = _render_band_regen(
-                scene.compiled, seed,
-                jnp.int32(b * band_rows_r), jnp.int32(sample0),
-                width=width, height=height, band_rows=band_rows_r,
-                s_par=s_par, spp=total_spp,
-                sample_limit=min(sample0 + spp_now, total_spp),
-                max_depth=renderer.max_ray_bounce_depth,
-                sampler=renderer.sampler, has_dof=has_dof,
-                cam_consts=cam_c, rr=renderer.russian_roulette,
-                clamp=renderer.clamp_indirect,
-            )
-            fb = fb.at[b * band_rows_r : (b + 1) * band_rows_r].add(out)
-        return fb[:height]
-
+    fb = jnp.zeros((n_bands * band_rows, width, 3), real)
+    cam_c = camera_consts(scene.camera, width, height)
     for b in range(n_bands):
-        for c in range(n_chunks):
-            s0 = sample0 + c * spp_chunk
-            out = _render_band(
-                scene.compiled, cam, seed,
-                jnp.int32(b * band_rows), jnp.int32(s0),
-                width=width, height=height, band_rows=band_rows,
-                spp_chunk=spp_chunk,
-                # spp stays the render TOTAL so samplers (notably STRATIFIED,
-                # whose strata geometry is sqrt(spp)) see the same geometry an
-                # uninterrupted render would; the batch's end index bounds
-                # validity instead.
-                spp=total_spp,
-                max_depth=renderer.max_ray_bounce_depth,
-                sampler=renderer.sampler, has_dof=has_dof,
-                sample_limit=min(sample0 + spp_now, total_spp),
-                rr=renderer.russian_roulette,
-                clamp=renderer.clamp_indirect,
-            )
-            fb = fb.at[b * band_rows : (b + 1) * band_rows].add(out)
+        out = _render_band_regen(
+            scene.compiled, seed,
+            jnp.int32(b * band_rows), jnp.int32(sample0),
+            width=width, height=height, band_rows=band_rows,
+            s_par=s_par,
+            # spp stays the render TOTAL so samplers (notably STRATIFIED,
+            # whose strata geometry is sqrt(spp)) see the same geometry an
+            # uninterrupted render would; the batch's end index bounds
+            # which samples render instead.
+            spp=total_spp,
+            sample_limit=min(sample0 + spp_now, total_spp),
+            max_depth=renderer.max_ray_bounce_depth,
+            sampler=renderer.sampler, has_dof=has_dof,
+            cam_consts=cam_c, rr=renderer.russian_roulette,
+            clamp=renderer.clamp_indirect,
+        )
+        fb = fb.at[b * band_rows : (b + 1) * band_rows].add(out)
     return fb[:height]

@@ -11,7 +11,7 @@ chip-count-invariance tests).
 
 Generator: PCG4D (Jarzynski & Olano, "Hash Functions for GPU Rendering",
 JCGT 2020) — 4-in/4-out u32 mixer with excellent statistical quality at ~25
-integer VPU ops for 4 outputs.  Gaussians come from Box-Muller pairs.
+integer ops for 4 outputs.  Gaussians come from Box-Muller pairs.
 """
 
 from __future__ import annotations
@@ -31,11 +31,9 @@ _MUL = np.uint32(1664525)
 _ADD = np.uint32(1013904223)
 TWO_PI = 6.283185307179586
 
-# Russian-roulette survival floor shared by the XLA integrator and the
-# Pallas bounce kernel (both draw u at per-bounce site k=3):
-# p = clamp(max(throughput), RR_P_MIN, 1) bounds weight amplification at
-# 1/RR_P_MIN.  Lives here because both twins import this module and must
-# agree bitwise.
+# Russian-roulette survival floor (the integrator draws u at per-bounce
+# site k=3): p = clamp(max(throughput), RR_P_MIN, 1) bounds weight
+# amplification at 1/RR_P_MIN.
 RR_P_MIN = 0.05
 
 
@@ -63,8 +61,7 @@ def pcg4d(a, b, c, d) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarra
 def _to_unit(v: jnp.ndarray) -> jnp.ndarray:
     """u32 -> [0, 1) float32 (24-bit mantissa path, never returns 1.0).
 
-    The value is < 2^24 after the shift, so converting via int32 is exact —
-    and unlike a u32->f32 cast it also lowers inside Pallas TPU kernels.
+    The value is < 2^24 after the shift, so converting via int32 is exact.
     """
     return (v >> 8).astype(jnp.int32).astype(real) * real(1.0 / (1 << 24))
 

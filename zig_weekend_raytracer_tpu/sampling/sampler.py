@@ -3,7 +3,7 @@
 The reference exposes ``ISampler`` as a tagged union over independent /
 stratified / Sobol samplers (src/math/sampler.zig:56-84); here the strategy
 is a static enum resolved at trace time (each strategy is a different XLA
-program — the TPU analog of comptime dispatch).
+program — the analog of comptime dispatch).
 
 Semantics matched to the reference's render path (src/render.zig:144-174):
   * independent: offsets uniform in [-0.5, 0.5]^2 (sampleSquareXY,

@@ -1,4 +1,4 @@
-"""Sobol quasi-Monte-Carlo sampler, fully vectorized for TPU.
+"""Sobol quasi-Monte-Carlo sampler, fully vectorized.
 
 Implements the PBRT-style Sobol pixel sampler of the reference
 (src/math/sampler.zig:162-300) as batched u32 bit-ops:
@@ -11,8 +11,8 @@ Implements the PBRT-style Sobol pixel sampler of the reference
     used to derive the per-dimension scramble seed
     (src/math/sampler.zig:241-246)
 
-TPU has no native u64, so 64-bit quantities (the global sample index) are
-carried as (hi, lo) u32 pairs; the van-der-Corput matrices are stored
+JAX runs in 32-bit mode by default, so 64-bit quantities (the global sample
+index) are carried as (hi, lo) u32 pairs; the van-der-Corput matrices are stored
 pre-split the same way.  All loops have static trip counts (52 matrix bits),
 so everything stays inside one fused XLA computation.
 
@@ -132,8 +132,7 @@ def u32_to_unit_float(v: jnp.ndarray) -> jnp.ndarray:
 
     The u32 is converted via exact 16-bit halves (hi*65536 is a power-of-two
     scaling of an exact integer; the single summation rounding equals the
-    direct u32->f32 round-to-nearest) — bit-identical to a plain cast, and
-    unlike one it also lowers inside Pallas TPU kernels.
+    direct u32->f32 round-to-nearest) — bit-identical to a plain cast.
     """
     hi = (v >> _U32(16)).astype(jnp.int32).astype(real)
     lo = (v & _U32(0xFFFF)).astype(jnp.int32).astype(real)

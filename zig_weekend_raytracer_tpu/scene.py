@@ -1,8 +1,8 @@
 """Scene description and compilation to flat device arrays.
 
 The reference builds a pointer graph of tagged-union entities on a memory
-pool (reference: src/entity.zig:17-66, src/scene.zig:36-62).  On TPU, pointer
-chasing is fatal, so this module provides:
+pool (reference: src/entity.zig:17-66, src/scene.zig:36-62).  A device
+wavefront wants flat tables instead of pointers, so this module provides:
 
   * ``SceneBuilder`` — a host-side API mirroring the reference's scene
     construction surface (textures, materials, spheres, quads, boxes,
@@ -11,8 +11,8 @@ chasing is fatal, so this module provides:
   * ``CompiledScene`` — the result: a pytree of SoA device arrays (sphere
     table, quad table, material table, texture table, image atlas, light
     list, optional linearized BVH).  Instancing transforms are *baked* into
-    world-space primitives at compile time (the TPU-native equivalent of the
-    reference's ray-transforming wrapper entities, src/entity.zig:68-206);
+    world-space primitives at compile time (in place of the reference's
+    ray-transforming wrapper entities, src/entity.zig:68-206);
     sphere UVs keep the object-space orientation via a stored per-sphere
     inverse Y-rotation, so results match the reference exactly.
 
@@ -22,9 +22,7 @@ branchlessly by the integrator.
 
 from __future__ import annotations
 
-import dataclasses
 import math as _math
-import os
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -54,54 +52,6 @@ TEX_IMAGE = 2    # reference: src/texture.zig:33
 
 PRIM_SPHERE = 0
 PRIM_QUAD = 1
-
-# Below this many primitives of a kind, the streaming brute-force kernel
-# beats group-tree traversal (measured; every table fits one grid step).
-TREE_MIN_PRIMS = 64
-
-
-def _box_downsample(im: np.ndarray, max_texels: int) -> np.ndarray:
-    """Box-average an (H, W, 3) u8 image down until h*w <= max_texels
-    (edge-padded to an integer factor).  Identity when it already fits."""
-    h, w = im.shape[:2]
-    if h * w <= max_texels:
-        return im
-    s = int(np.ceil(np.sqrt(h * w / max_texels)))
-    while (-(-h // s)) * (-(-w // s)) > max_texels:
-        s += 1
-    hp, wp = -(-h // s) * s, -(-w // s) * s
-    pad = np.pad(im, ((0, hp - h), (0, wp - w), (0, 0)), mode="edge")
-    box = pad.reshape(hp // s, s, wp // s, s, 3).mean(axis=(1, 3))
-    return np.rint(box).astype(np.uint8)
-
-
-def _build_tex_lut(images, max_texels: int):
-    """Pack (possibly downsampled) images into one (R, 128) i32 LUT of
-    r|g<<8|b<<16 texels (128-aligned per image) + static (w, h, base)
-    dims.  Values stay < 2**24 so the i32 view is lossless."""
-    dims = []
-    chunks = []
-    base = 0
-    for im in images:
-        ds = _box_downsample(np.asarray(im), max_texels)
-        h, w = ds.shape[:2]
-        packed = (
-            ds[..., 0].astype(np.uint32)
-            | (ds[..., 1].astype(np.uint32) << 8)
-            | (ds[..., 2].astype(np.uint32) << 16)
-        ).reshape(-1)
-        dims.append((int(w), int(h), int(base)))
-        aligned = -(-packed.size // 128) * 128
-        if aligned != packed.size:
-            packed = np.concatenate(
-                [packed, np.zeros(aligned - packed.size, np.uint32)]
-            )
-        chunks.append(packed)
-        base += aligned
-    tab = np.concatenate(chunks).astype(np.int32).reshape(-1, 128)
-    return jnp.asarray(tab), tuple(dims)
-
-
 
 _F = real_np
 _I = np.int32
@@ -239,18 +189,10 @@ _ARRAY_FIELDS = [
     "tex_type", "tex_rgb", "tex_inv_scale", "tex_even", "tex_odd", "tex_img",
     # image atlas (channel planes + packed u32 plane)
     "atlas_r", "atlas_g", "atlas_b", "atlas_packed", "atlas_wh",
-    "tex_lut_tab",
     # background
     "background",
-    # denormalized per-prim shading records (see ops/shade.py) + the
-    # lane-LUT layout consumed by the Pallas bounce kernel
-    "shade_rows", "shade_cols_sph", "shade_cols_quad", "shade_lut",
-    "mat_lut",
-    # per-kind group trees for the Pallas traversal kernels
-    "sph_tree_box", "sph_tree_link", "sph_tree_attrs",
-    "quad_tree_box", "quad_tree_link", "quad_tree_attrs",
-    # unified (both-kind) group tree for the bounce megakernel
-    "uni_tree_box", "uni_tree_link", "uni_sph_attrs", "uni_quad_attrs",
+    # denormalized per-prim shading records (see ops/shade.py)
+    "shade_rows", "shade_cols_sph", "shade_cols_quad",
     # linearized BVH (over unified prim list); degenerate when not built
     "bvh_min", "bvh_max", "bvh_miss", "bvh_leaf_start", "bvh_leaf_count",
     "bvh_prim_kind", "bvh_prim_idx",
@@ -259,10 +201,7 @@ _ARRAY_FIELDS = [
 _STATIC_FIELDS = [
     "n_spheres", "n_quads", "n_materials", "n_textures",
     "has_moving", "has_bvh", "max_leaf_size", "has_image_textures",
-    "lights", "has_sph_tree", "has_quad_tree",
-    "background_rgb", "light_params", "has_emissive_image", "image_dims",
-    "needs_gauss", "has_nested_checker", "sph_leaf_span", "quad_leaf_span",
-    "has_uni_tree", "uni_leaf_span", "rows", "tex_lut_dims",
+    "lights", "image_dims", "needs_gauss", "has_nested_checker",
 ]
 
 
@@ -320,36 +259,6 @@ class CompiledScene:
     shade_rows: jnp.ndarray
     shade_cols_sph: tuple
     shade_cols_quad: tuple
-    # (32, R, 128) f32: shade_rows columns padded to R*128 rows and tiled so
-    # the Pallas bounce kernel can gather a record per lane with R row
-    # selects + one lane shuffle per column (see ops/pallas_bounce.py)
-    shade_lut: jnp.ndarray
-    # (SHADE_BLOCK=14, R_m, 128) f32 deduplicated shading records (columns
-    # _C_MAT.._C_TEXID of shade_rows, unique rows); per-prim _C_MATID in
-    # shade_lut indexes into it.  Lets big scenes fetch shading at the
-    # material count's price instead of the primitive count's.
-    mat_lut: jnp.ndarray
-    # Per-kind group trees walked by the Pallas traversal kernels
-    # (ops/pallas_trace.py): preorder skip-link nodes whose leaves each hold
-    # one sublane group of 8 primitives.  ``*_tree_box`` is (n_nodes, 6) f32
-    # [min xyz, max xyz]; ``*_tree_link`` is (n_nodes, 2) i32 [miss link,
-    # leaf group id or -1]; ``*_tree_attrs`` is the leaf-ordered primitive
-    # attribute tuple (see geometry/bvh.py:build_group_tree).  Degenerate
-    # placeholders when has_{sph,quad}_tree is False.
-    sph_tree_box: jnp.ndarray
-    sph_tree_link: jnp.ndarray
-    sph_tree_attrs: tuple
-    quad_tree_box: jnp.ndarray
-    quad_tree_link: jnp.ndarray
-    quad_tree_attrs: tuple
-    # Unified spatial tree over BOTH kinds with kind-pure leaves
-    # (geometry/bvh.py:build_group_tree_unified), walked by the bounce
-    # megakernel when has_uni_tree — one traversal per bounce instead of
-    # two.  ``uni_tree_link`` is (n, 3) i32 [miss, leaf group, leaf kind].
-    uni_tree_box: jnp.ndarray
-    uni_tree_link: jnp.ndarray
-    uni_sph_attrs: tuple
-    uni_quad_attrs: tuple
     # BVH
     bvh_min: V3
     bvh_max: V3
@@ -367,78 +276,20 @@ class CompiledScene:
     has_bvh: bool = False
     max_leaf_size: int = 4
     has_image_textures: bool = False
-    has_sph_tree: bool = False
-    has_quad_tree: bool = False
-    # Static mirrors for the Pallas bounce kernel: the background color and
-    # the light-list geometry bake into the kernel as compile-time constants
-    # (the light list is tiny and static, like the reference's comptime
-    # dispatch).  light_params entries: (PRIM_SPHERE, (cx, cy, cz, r)) or
-    # (PRIM_QUAD, (sx, sy, sz, ux, uy, uz, vx, vy, vz, nx, ny, nz,
-    #              wx, wy, wz, offset, area)).
-    background_rgb: Tuple[float, float, float] = (0.0, 0.0, 0.0)
-    light_params: Tuple = ()
     # True iff any material actually consumes the per-bounce gaussian triple
-    # (isotropic scatter or fuzzy metal) — when False the bounce kernel
+    # (isotropic scatter or fuzzy metal) — when False the bounce step
     # skips the Box-Muller transcendentals entirely.
     needs_gauss: bool = True
-    # True if any emissive material samples an image texture (forces the
-    # XLA integrator; the bounce kernel handles everything else)
-    has_emissive_image: bool = False
-    # checker-in-checker nesting: records can't flatten it; the XLA
-    # integrator falls back to the general texture walk for such scenes
+    # checker-in-checker nesting: records can't flatten it; the integrator
+    # falls back to the general texture walk for such scenes
     has_nested_checker: bool = False
-    # Per-kind group-tree leaf spans in sublane groups (x8 prims), chosen
-    # per scene at compile (ops/pallas_trace.py:pick_leaf_span); the kernels
-    # read these so tree layout and traversal always agree.
-    sph_leaf_span: int = 32
-    quad_leaf_span: int = 32
-    # Wavefront rows per kernel tile (BLK = rows * 128 rays), chosen per
-    # scene at compile (ops/pallas_trace.py:pick_rows): 64 on TPU for
-    # brute-trace scenes (the measured vreg-ILP win, BASELINE.md round 4),
-    # 8 for tree/image-atlas scenes and non-TPU backends.
-    rows: int = 8
-    # Unified both-kind tree: measured NEGATIVE vs the two per-kind walks
-    # (BASELINE.md), so it is OPT-IN via ZWRT_UNI_TREE=1 when both kinds
-    # have trees; default renders use the per-kind walks.
-    has_uni_tree: bool = False
-    uni_leaf_span: int = 32
     # static (width, height) per atlas image: lets texture lookups compute
-    # flat gather indices with compile-time strides (a single 1D gather is
-    # ~8x cheaper than 3D fancy indexing on TPU)
+    # flat gather indices with compile-time strides (one 1D gather)
     image_dims: Tuple[Tuple[int, int], ...] = ((1, 1),)
     # Importance-sampled light list as STATIC ((kind, idx), ...) — the list
     # is tiny and static dispatch lets each slot evaluate only its own
     # primitive kind (reference: Scene.lights, src/scene.zig:43).
     lights: Tuple[Tuple[int, int], ...] = ()
-    # In-kernel texture LUT (VERDICT r4 #5, opt-in ZWRT_TEX_LUT=<max
-    # texels per image>): every atlas image box-downsampled to fit the
-    # budget and packed r|g<<8|b<<16 into one (R, 128) i32 table the
-    # bounce megakernel gathers with lane shuffles — no suspend/XLA-atlas
-    # round trip.  ``tex_lut_dims`` is the static ((w, h, base), ...) per
-    # image; empty = mode off.  A budget >= the native texel count is
-    # EXACT (bit-identical texels); smaller budgets are the documented
-    # approximate mode (reference: src/texture.zig:49-68).
-    tex_lut_tab: Optional[jnp.ndarray] = None
-    tex_lut_dims: Tuple = ()
-
-    def with_rows(self, rows: int) -> "CompiledScene":
-        """Copy of this scene with a different wavefront row count.
-
-        Short-sample-window passes (adaptive pilots, AOV prepasses) are
-        divergence/latency-dominated, where narrow tiles win — measured
-        on one v5e at cornell @128 spp (BASELINE.md round 4): adaptive
-        0.627 s at rows 8 vs 0.865 s at the scene's beauty-pass 64; the
-        AOV pass 0.229 s vs 0.371 s.  ``rows`` is a static field, so
-        jitted drivers re-trace (and the persistent cache keeps both
-        variants).  Returns self when the value already matches."""
-        if rows == self.rows:
-            return self
-        import dataclasses
-
-        from .ops.pallas_trace import _validated_rows
-
-        return dataclasses.replace(self, rows=_validated_rows(rows))
-
     @property
     def n_lights(self) -> int:
         return len(self.lights)
@@ -615,8 +466,8 @@ class SceneBuilder:
     def use_bvh(self, enable: bool = True, min_prims: int = 32) -> None:
         """Build a BVH over the flattened primitive list at compile time
         (the analog of createBvhTree on the root collection).  Below
-        ``min_prims`` primitives the brute-force SoA scan wins on TPU, so no
-        tree is built."""
+        ``min_prims`` primitives no tree is built and every ray scans the
+        whole table (the threshold is unmeasured on the GPU)."""
         self._root_bvh = enable
         self._bvh_min_prims = min_prims
 
@@ -703,13 +554,6 @@ class SceneBuilder:
         )
 
 
-def _pad_rows(arr: np.ndarray, n: int, fill=0.0) -> np.ndarray:
-    if arr.shape[0] >= n:
-        return arr
-    pad_shape = (n - arr.shape[0],) + arr.shape[1:]
-    return np.concatenate([arr, np.full(pad_shape, fill, arr.dtype)], axis=0)
-
-
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
@@ -748,9 +592,7 @@ def _compile_tables(
     build_bvh: bool,
 ) -> CompiledScene:
     # Sort each primitive table along a Morton space-filling curve so that
-    # the Pallas tracer's fixed-size primitive blocks become spatially tight
-    # clusters; per-block AABBs then cull whole blocks per ray row
-    # (a two-level "BVH-lite" that fits the sublane-brute kernel).
+    # neighbouring table entries are neighbours in space.
     spheres, sph_perm = _morton_sort(
         spheres, lambda s: np.asarray(s["center"], np.float64)
     )
@@ -858,13 +700,6 @@ def _compile_tables(
         | (atlas_g.astype(np.uint32) << 8)
         | (atlas_b.astype(np.uint32) << 16)
     )
-
-    # -- optional in-kernel texture LUT (ZWRT_TEX_LUT) --------------------
-    tex_lut_tab = None
-    tex_lut_dims: tuple = ()
-    _lut_budget = int(os.environ.get("ZWRT_TEX_LUT", "0") or 0)
-    if _lut_budget > 0 and images:
-        tex_lut_tab, tex_lut_dims = _build_tex_lut(images, _lut_budget)
 
     lights = tuple((int(k), int(idx)) for k, idx in light_entries)
 
@@ -976,229 +811,8 @@ def _compile_tables(
     shade_cols_sph = _cols(shade_rows[:n_s])
     shade_cols_quad = _cols(shade_rows[n_s : n_s + n_q])
 
-    # Deduplicated material table: primitives vastly outnumber distinct
-    # shading records (rtw_final: 3406 prims, ~9 records), so the bounce
-    # kernel fetches the SHADE_BLOCK (14) shading columns from this small
-    # table (usually one 128-lane chunk) and pays the per-prim R-row-chunk
-    # gather price only for the 7 geometry columns + the material id
-    # (_C_MATID).
-    from .ops.shade import _C_MAT as _CM, _C_MATID as _CMI
-
-    _mat_block = shade_rows[:, _CM : _CM + _SB]
-    _mat_uniq, _mat_inv = np.unique(
-        _mat_block, axis=0, return_inverse=True
-    )
-    shade_rows[:, _CMI] = _mat_inv.astype(_F)
-    _M = _mat_uniq.shape[0]
-    _RM = max(1, -(-_M // 128))
-    _mlut = np.zeros((_mat_uniq.shape[1], _RM * 128), _F)
-    _mlut[:, :_M] = _mat_uniq.T
-    mat_lut = jnp.asarray(_mlut.reshape(_mat_uniq.shape[1], _RM, 128))
-
-    # lane-LUT layout for the bounce kernel: (32 cols, R, 128)
-    _P = shade_rows.shape[0]
-    _R = max(1, -(-_P // 128))
-    _lut = np.zeros((shade_rows.shape[1], _R * 128), _F)
-    _lut[:, :_P] = shade_rows.T
-    shade_lut = jnp.asarray(_lut.reshape(shade_rows.shape[1], _R, 128))
-
-    # static light geometry for the bounce kernel
-    light_params = []
-    for kind, idx in lights:
-        if kind == PRIM_SPHERE:
-            light_params.append((
-                PRIM_SPHERE,
-                (float(sph_center[idx, 0]), float(sph_center[idx, 1]),
-                 float(sph_center[idx, 2]), float(sph_radius[idx])),
-            ))
-        else:
-            light_params.append((
-                PRIM_QUAD,
-                (float(quad_start[idx, 0]), float(quad_start[idx, 1]),
-                 float(quad_start[idx, 2]),
-                 float(quad_u[idx, 0]), float(quad_u[idx, 1]),
-                 float(quad_u[idx, 2]),
-                 float(quad_v[idx, 0]), float(quad_v[idx, 1]),
-                 float(quad_v[idx, 2]),
-                 float(quad_normal[idx, 0]), float(quad_normal[idx, 1]),
-                 float(quad_normal[idx, 2]),
-                 float(quad_w[idx, 0]), float(quad_w[idx, 1]),
-                 float(quad_w[idx, 2]),
-                 float(quad_offset[idx]), float(quad_area[idx])),
-            ))
-    light_params = tuple(light_params)
-
-    sph_lo = np.stack(
-        [
-            np.minimum(sph_center[:n_s] - sph_radius[:n_s, None],
-                       sph_center[:n_s] + sph_move[:n_s] - sph_radius[:n_s, None])
-        ]
-    )[0] if n_s else np.zeros((0, 3), _F)
-    sph_hi = np.stack(
-        [
-            np.maximum(sph_center[:n_s] + sph_radius[:n_s, None],
-                       sph_center[:n_s] + sph_move[:n_s] + sph_radius[:n_s, None])
-        ]
-    )[0] if n_s else np.zeros((0, 3), _F)
-    if n_q:
-        c0 = quad_start[:n_q]
-        c1 = c0 + quad_u[:n_q]
-        c2 = c0 + quad_v[:n_q]
-        c3 = c1 + quad_v[:n_q]
-        quad_lo = np.minimum(np.minimum(c0, c1), np.minimum(c2, c3))
-        quad_hi = np.maximum(np.maximum(c0, c1), np.maximum(c2, c3))
-    else:
-        quad_lo = np.zeros((0, 3), _F)
-        quad_hi = np.zeros((0, 3), _F)
-
-    # -- per-kind group trees for the Pallas traversal kernels -------------
-    # Built whenever a BVH is requested and the kind has enough primitives
-    # for traversal to beat the streaming brute kernel.
-    from .geometry import bvh as _bvh
-    from .ops.pallas_trace import pick_leaf_span
-
-    def _pad_thin(lo, hi, delta=1e-4):
-        """Degenerate-axis padding (reference: src/math/aabb.zig:103-122)."""
-        thin = (hi - lo) < delta
-        return (
-            np.where(thin, lo - delta / 2, lo),
-            np.where(thin, hi + delta / 2, hi),
-        )
-
-    def _leaf_attrs(slots, cols_and_fills):
-        """Leaf-slot-ordered attribute arrays; -1 slots get the unhittable
-        fill value.  The final array is the original prim index (i32)."""
-        padm = slots < 0
-        safe = np.where(padm, 0, slots)
-        out = [
-            jnp.asarray(np.where(padm, fill, col[safe]).astype(_F))
-            for col, fill in cols_and_fills
-        ]
-        out.append(jnp.asarray(np.where(padm, 0, slots).astype(_I)))
-        return tuple(out)
-
-    sph_leaf_span = pick_leaf_span(n_s)
-    quad_leaf_span = pick_leaf_span(n_q)
-    has_sph_tree = build_bvh and n_s >= TREE_MIN_PRIMS
-    if has_sph_tree:
-        lo, hi = _pad_thin(sph_lo.astype(np.float64), sph_hi.astype(np.float64))
-        tr = _bvh.build_group_tree(lo, hi, leaf_groups=sph_leaf_span)
-        sph_tree_box = jnp.asarray(tr["node_box"])
-        sph_tree_link = jnp.asarray(tr["node_link"])
-        sph_tree_attrs = _leaf_attrs(
-            tr["prim_slots"],
-            [
-                (sph_center[:n_s, 0], 1e30), (sph_center[:n_s, 1], 1e30),
-                (sph_center[:n_s, 2], 1e30), (sph_radius[:n_s] ** 2, 0.0),
-                (sph_move[:n_s, 0], 0.0), (sph_move[:n_s, 1], 0.0),
-                (sph_move[:n_s, 2], 0.0),
-            ],
-        )
-    else:
-        sph_tree_box = jnp.zeros((1, 6), real_np)
-        sph_tree_link = jnp.zeros((1, 2), _I)
-        sph_tree_attrs = ()
-
-    def _cross32(a, b):
-        a = a.astype(np.float32)
-        b = b.astype(np.float32)
-        return np.stack([
-            a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
-            a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
-            a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0],
-        ], axis=1)
-
-    _qA = _cross32(quad_v[:n_q], quad_w[:n_q])
-    _qB = _cross32(quad_w[:n_q], quad_u[:n_q])
-
-    has_quad_tree = build_bvh and n_q >= TREE_MIN_PRIMS
-    if has_quad_tree:
-        lo, hi = _pad_thin(quad_lo.astype(np.float64), quad_hi.astype(np.float64))
-        tr = _bvh.build_group_tree(lo, hi, leaf_groups=quad_leaf_span)
-        quad_tree_box = jnp.asarray(tr["node_box"])
-        quad_tree_link = jnp.asarray(tr["node_link"])
-        quad_tree_attrs = _leaf_attrs(
-            tr["prim_slots"],
-            [
-                (quad_start[:n_q, 0], 0.0), (quad_start[:n_q, 1], 0.0),
-                (quad_start[:n_q, 2], 0.0),
-                # zero normal -> parallel -> unhittable padding
-                (quad_normal[:n_q, 0], 0.0), (quad_normal[:n_q, 1], 0.0),
-                (quad_normal[:n_q, 2], 0.0),
-                # A = v x w, B = w x u in f32 with v3.cross's exact op
-                # order, so kernel alpha/beta match the XLA path bitwise
-                (_qA[:, 0], 0.0), (_qA[:, 1], 0.0), (_qA[:, 2], 0.0),
-                (_qB[:, 0], 0.0), (_qB[:, 1], 0.0), (_qB[:, 2], 0.0),
-                (quad_offset[:n_q], 0.0),
-            ],
-        )
-    else:
-        quad_tree_box = jnp.zeros((1, 6), real_np)
-        quad_tree_link = jnp.zeros((1, 2), _I)
-        quad_tree_attrs = ()
-
-    # -- unified (both-kind) tree for the bounce megakernel ----------------
-    # One spatial walk instead of two sequential per-kind walks.  Measured
-    # NEGATIVE on one v5e (rtw_final 64spp d8: 6.1 Mpaths/s unified vs 7.5
-    # per-kind, identical image) — the per-leaf kind `lax.cond` prices a
-    # second scalar branch per leaf visit, and tile-lockstep walks visit
-    # the union of both kinds' neighborhoods anyway, so the saved
-    # root-to-miss overhead never materializes.  Kept behind ZWRT_UNI_TREE=1
-    # for sweeps; see BASELINE.md round-3 traversal experiments.
-    has_uni_tree = (
-        has_sph_tree and has_quad_tree
-        and bool(os.environ.get("ZWRT_UNI_TREE"))
-    )
-    uni_leaf_span = pick_leaf_span(n_s + n_q)
-    if has_uni_tree:
-        lo_s, hi_s = _pad_thin(
-            sph_lo.astype(np.float64), sph_hi.astype(np.float64)
-        )
-        lo_q, hi_q = _pad_thin(
-            quad_lo.astype(np.float64), quad_hi.astype(np.float64)
-        )
-        tr = _bvh.build_group_tree_unified(
-            np.concatenate([lo_s, lo_q]),
-            np.concatenate([hi_s, hi_q]),
-            np.concatenate(
-                [np.zeros(n_s, np.int32), np.ones(n_q, np.int32)]
-            ),
-            np.concatenate(
-                [np.arange(n_s, dtype=np.int32),
-                 np.arange(n_q, dtype=np.int32)]
-            ),
-            leaf_groups=uni_leaf_span,
-        )
-        uni_tree_box = jnp.asarray(tr["node_box"])
-        uni_tree_link = jnp.asarray(tr["node_link"])
-        uni_sph_attrs = _leaf_attrs(
-            tr["sph_slots"],
-            [
-                (sph_center[:n_s, 0], 1e30), (sph_center[:n_s, 1], 1e30),
-                (sph_center[:n_s, 2], 1e30), (sph_radius[:n_s] ** 2, 0.0),
-                (sph_move[:n_s, 0], 0.0), (sph_move[:n_s, 1], 0.0),
-                (sph_move[:n_s, 2], 0.0),
-            ],
-        )
-        uni_quad_attrs = _leaf_attrs(
-            tr["quad_slots"],
-            [
-                (quad_start[:n_q, 0], 0.0), (quad_start[:n_q, 1], 0.0),
-                (quad_start[:n_q, 2], 0.0),
-                (quad_normal[:n_q, 0], 0.0), (quad_normal[:n_q, 1], 0.0),
-                (quad_normal[:n_q, 2], 0.0),
-                (_qA[:, 0], 0.0), (_qA[:, 1], 0.0), (_qA[:, 2], 0.0),
-                (_qB[:, 0], 0.0), (_qB[:, 1], 0.0), (_qB[:, 2], 0.0),
-                (quad_offset[:n_q], 0.0),
-            ],
-        )
-    else:
-        uni_tree_box = jnp.zeros((1, 6), real_np)
-        uni_tree_link = jnp.zeros((1, 3), _I)
-        uni_sph_attrs = ()
-        uni_quad_attrs = ()
-
     # BVH (built lazily in geometry.bvh; degenerate placeholder otherwise)
+    from .geometry import bvh as _bvh
 
     if build_bvh and (n_s + n_q) >= 2:
         bvh_arrays = _bvh.build_bvh(
@@ -1216,7 +830,6 @@ def _compile_tables(
         or any(c["kind"] == TEX_IMAGE for c in _checker_children(t))
         for t in textures
     )
-    from .ops.pallas_trace import pick_rows as _pick_rows_for
     return CompiledScene(
         sph_center=_v3c(sph_center),
         sph_radius=jnp.asarray(sph_radius),
@@ -1248,24 +861,10 @@ def _compile_tables(
         atlas_b=jnp.asarray(atlas_b),
         atlas_packed=jnp.asarray(atlas_packed),
         atlas_wh=jnp.asarray(atlas_wh),
-        tex_lut_tab=tex_lut_tab,
-        tex_lut_dims=tex_lut_dims,
         background=V3(jnp.asarray(bg[0]), jnp.asarray(bg[1]), jnp.asarray(bg[2])),
         shade_rows=jnp.asarray(shade_rows),
         shade_cols_sph=shade_cols_sph,
         shade_cols_quad=shade_cols_quad,
-        shade_lut=shade_lut,
-        mat_lut=mat_lut,
-        sph_tree_box=sph_tree_box,
-        sph_tree_link=sph_tree_link,
-        sph_tree_attrs=sph_tree_attrs,
-        quad_tree_box=quad_tree_box,
-        quad_tree_link=quad_tree_link,
-        quad_tree_attrs=quad_tree_attrs,
-        uni_tree_box=uni_tree_box,
-        uni_tree_link=uni_tree_link,
-        uni_sph_attrs=uni_sph_attrs,
-        uni_quad_attrs=uni_quad_attrs,
         bvh_min=_v3c(bvh_arrays["bvh_min"]),
         bvh_max=_v3c(bvh_arrays["bvh_max"]),
         bvh_miss=jnp.asarray(bvh_arrays["bvh_miss"]),
@@ -1283,34 +882,6 @@ def _compile_tables(
         has_image_textures=_scene_has_image_textures,
         has_nested_checker=has_nested_checker,
         lights=lights,
-        has_sph_tree=has_sph_tree,
-        has_quad_tree=has_quad_tree,
-        sph_leaf_span=sph_leaf_span,
-        quad_leaf_span=quad_leaf_span,
-        has_uni_tree=has_uni_tree,
-        uni_leaf_span=uni_leaf_span,
-        rows=_pick_rows_for(
-            has_tree=has_sph_tree or has_quad_tree or has_uni_tree,
-            # full-LUT scenes have no atlas chain: tile width follows the
-            # brute-scene policy
-            has_image_textures=(
-                _scene_has_image_textures and not tex_lut_dims
-            ),
-        ),
-        background_rgb=tuple(float(v) for v in background),
-        light_params=light_params,
-        has_emissive_image=any(
-            m["type"] == MAT_DIFFUSE_LIGHT
-            and textures
-            and (
-                textures[m.get("tex", 0)]["kind"] == TEX_IMAGE
-                or any(
-                    c["kind"] != TEX_SOLID
-                    for c in _checker_children(textures[m.get("tex", 0)])
-                )
-            )
-            for m in materials
-        ),
         needs_gauss=any(
             m["type"] == MAT_ISOTROPIC
             or (m["type"] == MAT_METAL and float(m.get("fuzz", 0.0)) > 0.0)

@@ -44,12 +44,8 @@ def _resolve_checker(scene: CompiledScene, tex_id, point: V3):
 
 def atlas_flat_index(image_dims, atlas_hw, img_id, u, v) -> jnp.ndarray:
     """(u, v, image) -> flat index into the packed-atlas plane, from STATIC
-    per-image dimensions.  Pure element-wise arithmetic (a static
-    select-chain over the tiny image list + clip/mul/cast), so it runs
-    identically in XLA and inside the Pallas megakernel — the kernel emits
-    PACKED chain events (one i32 per event) and the driver's chain fold
-    gathers texels by this index without re-deriving it (round 4; the fold
-    previously gathered the (u, v, img) triple per slot)."""
+    per-image dimensions.  Pure element-wise arithmetic: a static
+    select-chain over the tiny image list + clip/mul/cast."""
     ah, aw = atlas_hw
     w = jnp.zeros(jnp.shape(img_id), real)
     h = jnp.zeros(jnp.shape(img_id), real)
@@ -68,38 +64,6 @@ def atlas_flat_index(image_dims, atlas_hw, img_id, u, v) -> jnp.ndarray:
     return (img_id * (ah * aw)) + y * aw + x
 
 
-def lut_flat_index(lut_dims, img_id, u, v) -> jnp.ndarray:
-    """(u, v, image) -> flat texel index into the packed texture LUT
-    (CompiledScene.tex_lut_tab) from the STATIC per-image (w, h, base)
-    dims.  Same select-chain + clip/mul/cast shape as atlas_flat_index —
-    runs identically in XLA and inside the Pallas megakernel."""
-    w = jnp.zeros(jnp.shape(img_id), real)
-    h = jnp.zeros(jnp.shape(img_id), real)
-    wi = jnp.zeros(jnp.shape(img_id), jnp.int32)
-    hi = jnp.zeros(jnp.shape(img_id), jnp.int32)
-    base = jnp.zeros(jnp.shape(img_id), jnp.int32)
-    for i, (iw, ih, ib) in enumerate(lut_dims):
-        sel = img_id == i
-        w = jnp.where(sel, real(iw), w)
-        h = jnp.where(sel, real(ih), h)
-        wi = jnp.where(sel, iw, wi)
-        hi = jnp.where(sel, ih, hi)
-        base = jnp.where(sel, ib, base)
-    uc = jnp.clip(u, 0.0, 1.0)
-    vc = 1.0 - jnp.clip(v, 0.0, 1.0)  # flip to image coords
-    x = jnp.clip((uc * w).astype(jnp.int32), 0, wi - 1)
-    y = jnp.clip((vc * h).astype(jnp.int32), 0, hi - 1)
-    return base + y * wi + x
-
-
-def lut_lookup(scene, img_id, u, v) -> V3:
-    """XLA twin of the in-kernel LUT fetch (tests + reference gather):
-    one 1D gather of the packed texel by lut_flat_index."""
-    flat = lut_flat_index(scene.tex_lut_dims, img_id, u, v)
-    packed = scene.tex_lut_tab.reshape(-1)[flat].astype(jnp.uint32)
-    return _unpack_texel(packed)
-
-
 def _unpack_texel(packed) -> V3:
     scale = real(1.0 / 255.0)
     texel = V3(
@@ -112,8 +76,8 @@ def _unpack_texel(packed) -> V3:
 
 def atlas_lookup_flat(scene: CompiledScene, flat) -> V3:
     """Packed-atlas fetch by precomputed flat texel index (from
-    ``atlas_flat_index``, possibly computed inside the megakernel).
-    One 1D gather of the r|g<<8|b<<16 texel, byte -> linear (gamma 2)."""
+    ``atlas_flat_index``).  One 1D gather of the r|g<<8|b<<16 texel,
+    byte -> linear (gamma 2)."""
     packed = scene.atlas_packed.reshape(-1)[flat]
     return _unpack_texel(packed)
 
@@ -123,13 +87,10 @@ def atlas_lookup(scene: CompiledScene, img_id, u, v) -> V3:
     (reference: src/texture.zig:49-77).
 
     Per-image dimensions are compile-time constants (scene.image_dims), so
-    the texel address is ONE flat 1D gather — measured ~8x cheaper than 3D
-    fancy indexing on TPU (the gather itself is ~1 ms per 256k rays
-    regardless of atlas size)."""
+    the texel address is ONE flat 1D gather of the packed r|g<<8|b<<16
+    texel instead of three channel gathers."""
     n_img, ah, aw = scene.atlas_packed.shape
     flat = atlas_flat_index(scene.image_dims, (ah, aw), img_id, u, v)
-    # one gather of the packed r|g<<8|b<<16 texel (3x cheaper than three
-    # channel gathers: big-table gathers are serialized on TPU)
     return atlas_lookup_flat(scene, flat)
 
 

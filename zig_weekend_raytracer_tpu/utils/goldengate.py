@@ -1,20 +1,20 @@
-"""Region-statistics correctness gate shared by bench.py and
-tools/tpu_golden_check.py.
+"""Region-statistics correctness gate shared by bench.py, chip_smoke.py and
+tools/golden_check.py.
 
-Compares a framebuffer rendered on the current backend (on hardware: the
-compiled Mosaic kernel paths) against CPU/XLA reference region statistics.
-Fills the role of the reference's examples/ artifacts as a correctness
-oracle (/root/reference/README.md:4) but machine-checked: a compiled-kernel
-miscompile that shifted brightness or broke a region fails a driver-visible
-command, not just eyeballs.
+Compares a framebuffer rendered on the current backend against reference
+region statistics (committed CPU goldens, or a reference render on the
+same device).  Fills the role of the reference's examples/ artifacts as a
+correctness oracle (the reference's README.md:4) but machine-checked: a
+miscompile that shifted brightness or broke a region fails a command, not
+just eyeballs.
 
-Tolerance policy (two tiers + global mean), calibrated by measurement on
-one v5e (round 3): float divergence between backends (polynomial
-transcendentals, fma contraction) decorrelates a few chaotic paths —
-glass/fuzz/motion scenes like rtw_final shift 2-3 dim regions by 1-3e-3
-luminance, a FRACTION of one-seed MC noise (seed0-vs-seed1 at the same
-config moves 19/64 regions beyond a 2%+1e-3 bound, worst 27%; same-seed
-CPU-vs-TPU moves 3, worst 6%).  A single-region 2% gate therefore
+Tolerance policy (two tiers + global mean): float divergence between
+backends or programs (reassociation, FMA contraction, transcendental
+implementations) decorrelates a few chaotic paths — glass/fuzz/motion
+scenes like rtw_final shift 2-3 dim regions by 1-3e-3 luminance, a
+FRACTION of one-seed MC noise (seed0-vs-seed1 at the same config moves
+19/64 regions beyond a 2%+1e-3 bound, worst 27%; a same-seed render on
+another backend moved 3, worst 6%).  A single-region 2% gate therefore
 false-positives on chaotic scenes, while a real miscompile is either
 systematic (shifts the global mean / many regions) or localized-but-large:
 

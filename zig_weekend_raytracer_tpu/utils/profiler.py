@@ -1,5 +1,4 @@
-"""Profiler zones: the TPU-native equivalent of the reference's Tracy
-integration.
+"""Profiler zones: the equivalent of the reference's Tracy integration.
 
 The reference instruments hot paths with ``ztracy.ZoneN`` zones that compile
 to no-op stubs unless Tracy is enabled at build time
@@ -19,6 +18,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from typing import NamedTuple
 
 import jax
 
@@ -110,37 +110,35 @@ def trace_to(log_dir: str):
 # ---------------------------------------------------------------------------
 
 # Map raw device op names onto the zone vocabulary the reference uses.
-# Two tiers (round 4; the round-3 substring table misattributed generic
-# names — any fusion containing "while"/"gather"/"copy" landed in the
-# wrong zone):
-#   1. regexes anchored to the names THIS repo actually emits — Pallas
-#      kernel function names (ops/pallas_bounce.py / ops/pallas_trace.py)
-#      and the named_zone scopes that survive into HLO metadata;
+# Two tiers:
+#   1. the ``jax.named_scope`` names the integrator always emits
+#      (render/integrator.py: closest_hit, shade, regenerate), matched in the
+#      event name or in the op's metadata path (event args, _PATH_ARGS);
 #   2. otherwise bucket by the leading HLO op KIND token (the instruction
-#      name up to its `.N` suffix), never by substring.
+#      name up to its `.N` suffix), never by substring — a fusion whose
+#      name merely contains "while" or "gather" is still a fusion.
 import re as _re
 
 _DEVICE_ZONE_RULES = tuple(
     (_re.compile(rx), zone)
     for rx, zone in (
-        (r"bounce_kernel|bounce_pallas|raycolor\b", "rayColor (bounce megakernel)"),
-        (r"fused_render|raycolorline", "rayColorLine (whole-render megakernel)"),
-        (r"tree_kernel|tree_pass|bvh", "BVH::hit (tree traversal kernel)"),
-        (r"sphere_kernel", "Sphere::hit (trace kernel)"),
-        (r"quad_kernel", "Quad::hit (trace kernel)"),
-        (r"atlas|imagetexture", "ImageTexture::value (atlas pass)"),
+        (r"(^|[/\s])closest_hit([/\s]|$)", "closest hit (rayColor / BVH::hit)"),
+        (r"(^|[/\s])shade([/\s]|$)", "shading (Material::scatter)"),
+        (r"(^|[/\s])regenerate([/\s]|$)", "ray regeneration (sampleRay)"),
     )
 )
 
-# HLO op kinds worth naming in the reference's vocabulary; everything else
-# shows under its own kind token.  Exact-kind match only — "gather.12"
-# buckets here, but "fusion.gather_things.3" is a fusion.
+# HLO op kinds worth naming; everything else shows under its own kind
+# token.  Exact-kind match only — "gather.12" buckets here, but
+# "fusion.gather_things.3" is a fusion.
 _KIND_ZONES = {
     "while": "render loop (while)",
     "copy": "memcpy",
     "copy-start": "memcpy",
     "copy-done": "memcpy",
     "fusion": "XLA fusion",
+    "loop_fusion": "XLA fusion",
+    "input_fusion": "XLA fusion",
     "gather": "gather op",
     "dynamic-update-slice": "scatter/update op",
     "scatter": "scatter/update op",
@@ -152,12 +150,17 @@ _KIND_ZONES = {
 # (e.g. "copy-start", "dynamic-update-slice")
 _KIND_RE = _re.compile(r"^([a-z][a-z0-9_-]*?)(?:\..*)?$")
 
+# event args that may carry the op's metadata path (named scopes); on the
+# GPU the kernel's ``name`` arg is the op_name path of the fusion's root
+_PATH_ARGS = ("name", "tf_op", "long_name")
 
-def _zone_for(op_name: str) -> str:
+
+def _zone_for(op_name: str, path: str = "") -> str:
     low = op_name.lower()
-    for rx, zone in _DEVICE_ZONE_RULES:
-        if rx.search(low):
-            return zone
+    for text in (low, path.lower()):
+        for rx, zone in _DEVICE_ZONE_RULES:
+            if text and rx.search(text):
+                return zone
     # profiler event names may be bare HLO instruction names OR full
     # metadata paths ("jit(render)/while/body/fusion.3") — the op kind is
     # the LAST path component's leading token
@@ -168,32 +171,48 @@ def _zone_for(op_name: str) -> str:
     return op_name.split(".")[0][:48] or "(unnamed)"
 
 
-def parse_device_trace(log_dir: str) -> dict:
-    """Aggregate DEVICE-side op durations from a ``jax.profiler.trace``
-    capture: {zone: (count, total_ms)}.  Parses the Perfetto/Chrome trace
-    JSON the profiler writes (no TensorBoard needed)."""
+def _trace_files(log_dir: str) -> list:
+    """One trace JSON per profiler run directory: the Perfetto export when
+    present, else the ``*.trace.json(.gz)`` the profiler wrote."""
     import glob
+
+    runs: dict = {}
+    for pattern in ("perfetto_trace.json.gz", "*.trace.json.gz",
+                    "*.trace.json"):
+        for path in sorted(glob.glob(
+            os.path.join(log_dir, "**", pattern), recursive=True
+        )):
+            runs.setdefault(os.path.dirname(path), path)
+    return sorted(runs.values())
+
+
+class DeviceEvent(NamedTuple):
+    name: str      # kernel or copy name
+    path: str      # metadata path(s) of the op (named scopes), may be ""
+    ts: float      # start, microseconds
+    dur: float     # duration, microseconds
+    module: str = ""  # HLO module the kernel belongs to
+
+
+def device_events(log_dir: str) -> list:
+    """DeviceEvent of every complete event on a device timeline (a process
+    named ``/device:...``) in the traces under ``log_dir``."""
     import gzip
     import json
 
-    paths = glob.glob(
-        os.path.join(log_dir, "**", "*.trace.json.gz"), recursive=True
-    ) + glob.glob(os.path.join(log_dir, "**", "*.trace.json"), recursive=True)
-    agg: dict = {}
-    for path in paths:
+    out = []
+    for path in _trace_files(log_dir):
         opener = gzip.open if path.endswith(".gz") else open
         with opener(path, "rt") as f:
             data = json.load(f)
-        events = data.get("traceEvents", [])
-        # pid -> process name (device timelines contain "TPU"/"device")
-        pid_name = {}
-        for ev in events:
-            if ev.get("ph") == "M" and ev.get("name") == "process_name":
-                pid_name[ev.get("pid")] = ev.get("args", {}).get("name", "")
+        events = data.get("traceEvents", []) if isinstance(data, dict) \
+            else data
         device_pids = {
-            pid for pid, name in pid_name.items()
-            if any(s in name for s in ("TPU", "device", "Device", "/device"))
-            and "Host" not in name
+            ev.get("pid") for ev in events
+            if ev.get("ph") == "M" and ev.get("name") == "process_name"
+            and str(ev.get("args", {}).get("name", "")).startswith(
+                "/device:"
+            )
         }
         for ev in events:
             if ev.get("ph") != "X" or ev.get("pid") not in device_pids:
@@ -201,10 +220,44 @@ def parse_device_trace(log_dir: str) -> dict:
             dur_us = ev.get("dur")
             if not dur_us:
                 continue
-            zone = _zone_for(str(ev.get("name", "")))
-            z = agg.setdefault(zone, [0, 0.0])
-            z[0] += 1
-            z[1] += dur_us / 1e3
+            args = ev.get("args") or {}
+            meta = " ".join(
+                str(args[k]) for k in _PATH_ARGS if k in args
+            )
+            out.append(DeviceEvent(
+                str(ev.get("name", "")), meta, float(ev.get("ts", 0.0)),
+                float(dur_us), str(args.get("hlo_module", "")),
+            ))
+    return out
+
+
+def busy_share(events: list, window_us: float) -> float:
+    """Fraction of ``window_us`` in which at least one device event runs
+    (the union of the events' intervals; overlapping streams count once)."""
+    spans = sorted((ev.ts, ev.ts + ev.dur) for ev in events)
+    busy = 0.0
+    cur_start = cur_end = None
+    for a, b in spans:
+        if cur_end is None or a > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = a, b
+        else:
+            cur_end = max(cur_end, b)
+    if cur_end is not None:
+        busy += cur_end - cur_start
+    return busy / window_us if window_us > 0 else 0.0
+
+
+def parse_device_trace(log_dir: str) -> dict:
+    """Aggregate DEVICE-side op durations from a ``jax.profiler.trace``
+    capture: {zone: (count, total_ms)}.  Parses the trace JSON the
+    profiler writes (no TensorBoard needed)."""
+    agg: dict = {}
+    for ev in device_events(log_dir):
+        z = agg.setdefault(_zone_for(ev.name, ev.path), [0, 0.0])
+        z[0] += 1
+        z[1] += ev.dur / 1e3
     return {k: tuple(v) for k, v in agg.items()}
 
 
@@ -213,7 +266,7 @@ def format_device_summary(agg: dict) -> str:
     if not agg:
         return (
             "no device trace events captured (CPU backend traces carry no "
-            "device timeline; run on TPU hardware)"
+            "device timeline; run on a GPU)"
         )
     rows = sorted(agg.items(), key=lambda kv: -kv[1][1])
     name_w = max(4, max(len(k) for k, _ in rows))
@@ -237,8 +290,14 @@ def run_with_device_trace(fn):
     import tempfile
 
     log_dir = tempfile.mkdtemp(prefix="zwrt_trace_")
+    # No Python tracer: a first render compiles inside the window, and the
+    # Python call events of tracing and compilation would crowd the
+    # device events out of the exported trace.
+    opts = jax.profiler.ProfileOptions()
+    opts.python_tracer_level = 0
     try:
-        with jax.profiler.trace(log_dir):
+        with jax.profiler.trace(log_dir, create_perfetto_trace=True,
+                                profiler_options=opts):
             result = fn()
         return result, parse_device_trace(log_dir)
     finally:
